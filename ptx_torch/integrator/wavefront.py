@@ -1,0 +1,400 @@
+"""The wavefront path-tracing integrator (port of
+``ptx/integrator/wavefront.py``, forward only).
+
+The wavefront is a ``RayState`` of [R] tensors.  Each iteration of a host
+loop runs one bounce on the live lanes: the trace stage (closest hit, then
+the sun's shadow ray) and the shade stage (every ``shading_worker.cpp``
+quirk, term for term as in the JAX package).  The RNG is keyed by (pixel,
+sample, bounce, purpose), so lane order never changes a sample.  With
+survivor compaction (:func:`_chunked_forward`) the loop sorts the wavefront
+dead-last each iteration and steps only the live CHUNK-lane chunks; each
+live count read (``.item()``) is one device sync.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+from ptx_torch import math as pmath
+from ptx_torch import sampling
+from ptx_torch.kernels import sorting
+from ptx_torch.scene import camera as pcamera
+from ptx_torch.scene import textures
+from ptx.config import RenderConfig
+from ptx.scene.flatten import FlatScene, SceneStatic
+
+
+class RayState(NamedTuple):
+    orig: torch.Tensor  # [R, 3]
+    dirn: torch.Tensor  # [R, 3]
+    radiance: torch.Tensor  # [R, 3] accumulated color
+    throughput: torch.Tensor  # [R, 3]
+    alpha: torch.Tensor  # [R]
+    alive: torch.Tensor  # [R] bool
+    bounce: torch.Tensor  # [R] int32, counts down from cfg.bounces
+    pixel_ids: torch.Tensor  # [R] int32
+    sample_ids: torch.Tensor  # [R] int32
+
+
+def compute_hit_attrs(fs: FlatScene, tri, beta, gamma, at=None):
+    """Barycentric attribute interpolation at hit points: (position,
+    normal, tangent, uv, mat_id).  Everything comes from one packed
+    ``tri_attrs`` row gather when the scene has the pack (``at``: rows the
+    caller already gathered)."""
+    alpha_w = 1.0 - beta - gamma
+    w0, w1, w2 = alpha_w[..., None], beta[..., None], gamma[..., None]
+    if at is None and fs.tri_attrs.shape[0] == fs.tri_a.shape[0]:
+        at = fs.tri_attrs[tri]  # [R, 40]
+    if at is not None:
+        n0, n1, n2 = at[..., 0:3], at[..., 3:6], at[..., 6:9]
+        t0, t1, t2 = at[..., 9:12], at[..., 12:15], at[..., 15:18]
+        uv0, uv1, uv2 = at[..., 18:20], at[..., 20:22], at[..., 22:24]
+        mat_id = at[..., 24].to(torch.int32)
+        a, e1, e2 = at[..., 25:28], at[..., 28:31], at[..., 31:34]
+    else:
+        n0, n1, n2 = fs.n0[tri], fs.n1[tri], fs.n2[tri]
+        t0, t1, t2 = fs.t0[tri], fs.t1[tri], fs.t2[tri]
+        uv0, uv1, uv2 = fs.uv0[tri], fs.uv1[tri], fs.uv2[tri]
+        mat_id = fs.mat_id[tri]
+        a, e1, e2 = fs.tri_a[tri], fs.tri_e1[tri], fs.tri_e2[tri]
+    position = a + e1 * beta[..., None] + e2 * gamma[..., None]
+    normal = pmath.normalize(n0 * w0 + n1 * w1 + n2 * w2)
+    tangent = pmath.normalize(t0 * w0 + t1 * w1 + t2 * w2)
+    uv = uv0 * w0 + uv1 * w1 + uv2 * w2
+    return position, normal, tangent, uv, mat_id
+
+
+def _env_radiance(fs: FlatScene, static: SceneStatic, cfg: RenderConfig, dirn):
+    """Environment contribution on a miss."""
+    env_factor = torch.tensor(
+        cfg.environment_factor, dtype=torch.float32, device=dirn.device
+    )
+    if static.env_tex >= 0:
+        uv = pmath.equirectangular_proj(dirn)
+        tex = torch.full(dirn.shape[:-1], static.env_tex, dtype=torch.int32,
+                         device=dirn.device)
+        return textures.sample_texture(fs, tex, uv, static)[..., :3] * env_factor
+    return env_factor.expand(dirn.shape)
+
+
+def _brdf_and_pdfs(normal, outcoming, incoming, albedo, metallic, roughness):
+    """The BRDF block shared by NEE and indirect sampling."""
+    diffuse_pdf = sampling.pdf_diffuse(normal, incoming)
+    diffuse_brdf = diffuse_pdf[..., None] * albedo
+    specular_pdf = sampling.pdf_specular(normal, outcoming, incoming, roughness)
+    specular_brdf = specular_pdf[..., None].expand(albedo.shape)
+    fres = pmath.lerp(torch.full_like(albedo, 0.04), albedo, metallic[..., None])
+    halfway = pmath.normalize(outcoming + incoming)
+    cos_theta = pmath.dot(outcoming, halfway)
+    fres = pmath.lerp(
+        fres, torch.ones_like(fres),
+        torch.pow(torch.clamp(1.0 - cos_theta, min=0.0), 5.0)[..., None],
+    )
+    diffuse_brdf = diffuse_brdf * (1.0 - metallic[..., None])
+    brdf = pmath.lerp(diffuse_brdf, specular_brdf, fres)
+    return brdf, diffuse_pdf, specular_pdf
+
+
+# Lanes per compaction chunk, and the live count below which the
+# per-iteration re-sort is skipped.  Both were measured on a TPU and are
+# kept until the card's own measurement replaces them.
+CHUNK = 8192
+SKIP_SORT_MAX = 4096
+
+
+def _chunked_forward(step_fn, fs, state: RayState, max_iters: int,
+                     static: SceneStatic):
+    """Forward bounce loop with survivor compaction.  Each iteration sorts
+    the wavefront dead-last (fused with the morton key) and steps only the
+    first ceil(live / CHUNK) chunks; lanes beyond them are dead and final.
+    Once every live lane fits chunk 0 and there are at most SKIP_SORT_MAX of
+    them, lanes only die in place and the sort is skipped.  Returns the
+    (radiance, alpha) of the lanes in their original order."""
+    r = state.orig.shape[0]
+    chunk = CHUNK if r % CHUNK == 0 else r
+    n_chunks = r // chunk
+    slot = torch.arange(r, device=state.orig.device)
+    dead_key = 1 << 30
+    live = int(state.alive.sum())
+    in_c0 = False
+    it = 0
+    while it < max_iters and live > 0:
+        if not in_c0:
+            key = sorting.ray_keys(
+                state.orig, state.dirn, static.aabb_lo, static.aabb_hi
+            )
+            perm = torch.argsort(
+                torch.where(state.alive, key, dead_key), stable=True
+            )
+            state = RayState(*(x[perm] for x in state))
+            slot = slot[perm]
+        in_c0 = in_c0 or live <= min(chunk, SKIP_SORT_MAX)
+        n_live = min(-(-live // chunk), n_chunks)
+        for ci in range(n_live):
+            sl = slice(ci * chunk, (ci + 1) * chunk)
+            sub = step_fn(fs, it, RayState(*(x[sl] for x in state)))
+            for dst, src in zip(state, sub):
+                dst[sl] = src
+        it += 1
+        live = int(state.alive.sum())
+    radiance = torch.empty_like(state.radiance)
+    radiance[slot] = state.radiance
+    alpha = torch.empty_like(state.alpha)
+    alpha[slot] = state.alpha
+    return radiance, alpha
+
+
+def make_trace_fn(static: SceneStatic, cfg: RenderConfig, closest: Callable,
+                  any_hit: Callable, do_compact: bool = None):
+    """The per-bounce trace stage ``(fs, it, state) -> (hit, d_sun,
+    sun_exists, shadow_hit)``: the closest hit and the sun's shadow ray."""
+    if do_compact is None:
+        do_compact = sorting.resolve_compact(static, cfg)
+
+    def trace(fs: FlatScene, it: int, state: RayState):
+        r = state.orig.shape[0]
+        pix, smp = state.pixel_ids, state.sample_ids
+
+        def u(purpose):
+            return sampling.uniform(pix, smp, it, purpose, cfg.seed)
+
+        # Dead lanes are parked outside the scene so they sort into
+        # all-dead blocks and fail every tile gate.
+        if do_compact:
+            q_orig, q_dirn = sorting.park(state.orig, state.dirn, state.alive,
+                                          static)
+        else:
+            q_orig, q_dirn = state.orig, state.dirn
+        h = closest(fs, q_orig, q_dirn)
+
+        if static.has_sun:
+            cos_theta = torch.cos(u(sampling.P_SUN_THETA) * fs.sun_angular_radius)
+            d_sun = sampling.cone_vec(
+                u(sampling.P_SUN_PHI), cos_theta, fs.sun_dir.expand(state.dirn.shape)
+            )
+            sun_exists = pmath.dot(h.normal, d_sun) > 0.0
+            shadow_org = h.position + d_sun * pmath.EPS
+            alive_hit = state.alive & h.hit
+            if do_compact:
+                s_org, s_dir = sorting.park(
+                    shadow_org, d_sun, alive_hit & sun_exists, static
+                )
+            else:
+                s_org, s_dir = shadow_org, d_sun
+            shadow_hit = any_hit(fs, s_org, s_dir)
+        else:
+            d_sun = torch.zeros_like(state.dirn)
+            sun_exists = torch.zeros((r,), dtype=torch.bool, device=pix.device)
+            shadow_hit = torch.zeros((r,), dtype=torch.bool, device=pix.device)
+        return h, d_sun, sun_exists, shadow_hit
+
+    return trace
+
+
+def make_shade_fn(static: SceneStatic, cfg: RenderConfig):
+    """The per-bounce shade stage ``(fs, it, state, hit, d_sun, sun_exists,
+    shadow_hit) -> RayState``: plain torch, no traversal."""
+    q = cfg.quirks
+
+    def shade(fs: FlatScene, it: int, state: RayState, h, d_sun, sun_exists,
+              shadow_hit) -> RayState:
+        pix, smp = state.pixel_ids, state.sample_ids
+
+        def u(purpose):
+            return sampling.uniform(pix, smp, it, purpose, cfg.seed)
+
+        hit = h.hit & state.alive
+        position, n_interp, tangent, uv, mat_id = (
+            h.position, h.normal, h.tangent, h.uv, h.mat_id
+        )
+
+        # Miss: environment, terminate.
+        env = _env_radiance(fs, static, cfg, state.dirn)
+        miss = state.alive & ~hit
+        radiance = torch.where(
+            miss[..., None], state.radiance + state.throughput * env,
+            state.radiance,
+        )
+        alpha = torch.where(
+            miss, 0.0 if cfg.transparent_background else 1.0, state.alpha
+        )
+        alive = state.alive & hit
+        alpha = torch.where(hit, 1.0, alpha)
+
+        # Material fetch; emission.
+        mat = textures.material_lookup(fs, mat_id, uv, static)
+        emissive = mat["emissive"] * q.emissive_scale
+        radiance = torch.where(
+            alive[..., None], radiance + state.throughput * emissive, radiance
+        )
+
+        # Stochastic opacity passthrough: does not consume a bounce.
+        translucent = torch.abs(mat["opacity"] - 1.0) > pmath.EPS
+        passthrough = alive & translucent & (u(sampling.P_OPACITY) > mat["opacity"])
+
+        # Shading normal via TBN + normal map.
+        binormal = pmath.cross(n_interp, tangent)
+        tn = mat["tangent_normal"]
+        n_shade = pmath.normalize(
+            tangent * tn[..., 0:1] + binormal * tn[..., 1:2] + n_interp * tn[..., 2:3]
+        )
+        outcoming = -state.dirn
+
+        # Backface cull.
+        backface = alive & ~passthrough & (pmath.dot(n_shade, outcoming) <= 0.0)
+
+        # Shadow catcher, first bounce.
+        is_catcher = mat["shadow_catcher"] > 0.5
+        first_bounce = state.bounce == cfg.bounces
+        catcher_now = alive & ~passthrough & ~backface & is_catcher & first_bounce
+        if static.has_sun:
+            catcher_lit = (
+                catcher_now & sun_exists & (pmath.dot(n_shade, d_sun) > 0.0)
+                & ~shadow_hit
+            )
+        else:
+            catcher_lit = torch.zeros_like(catcher_now)
+        catcher_shadowed = catcher_now & ~catcher_lit
+        radiance = torch.where(catcher_shadowed[..., None], 0.0, radiance)
+        alpha = torch.where(catcher_shadowed, 1.0, alpha)
+        passthrough = passthrough | catcher_lit
+
+        # Lobe selection.
+        roughness = torch.clamp(mat["roughness"], min=q.roughness_floor)
+        mirror = pmath.reflect(-outcoming, n_shade)
+        spec_prob = sampling.fresnel(outcoming, mirror, mat["ior"])
+        spec_prob = torch.maximum(spec_prob, mat["metallic"])
+        specular_sample = u(sampling.P_LOBE) < spec_prob
+
+        shading = alive & ~passthrough & ~backface & ~catcher_shadowed
+
+        # Sun NEE, pdf = 1, clamped to the light energy.
+        if static.has_sun:
+            nee_ok = (
+                shading & sun_exists & (pmath.dot(n_shade, d_sun) > 0.0)
+                & ~shadow_hit
+            )
+            brdf, _, _ = _brdf_and_pdfs(
+                n_shade, outcoming, d_sun, mat["albedo"], mat["metallic"], roughness
+            )
+            direct_in = fs.sun_energy.expand(brdf.shape)
+            direct_out = brdf * direct_in
+            if q.clamp_direct_to_light:
+                direct_out = torch.minimum(
+                    torch.clamp(direct_out, min=0.0), direct_in
+                )
+            radiance = torch.where(
+                nee_ok[..., None], radiance + state.throughput * direct_out,
+                radiance,
+            )
+
+        # Indirect bounce.
+        u1, u2 = u(sampling.P_BRDF_U), u(sampling.P_BRDF_V)
+        d_spec = sampling.importance_specular(u1, u2, n_shade, outcoming, roughness)
+        d_diff = sampling.importance_diffuse(u1, u2, n_shade)
+        d_new = torch.where(specular_sample[..., None], d_spec, d_diff)
+
+        up_facing = pmath.dot(n_shade, d_new) > 0.0
+        brdf_i, diffuse_pdf, specular_pdf = _brdf_and_pdfs(
+            n_shade, outcoming, d_new, mat["albedo"], mat["metallic"], roughness
+        )
+        pdf = pmath.lerp(diffuse_pdf, specular_pdf, spec_prob)
+        factor = brdf_i / torch.clamp(pdf, min=pmath.EPS)[..., None]
+        if q.indirect_clamp_to_incoming:
+            new_throughput = state.throughput * torch.clamp(factor, 0.0, 1.0)
+        else:
+            new_throughput = torch.clamp(
+                state.throughput * factor, 0.0, q.throughput_clamp
+            )
+
+        # Russian roulette after rr_after_bounces completed bounces.
+        rr_active = state.bounce < (cfg.bounces - q.rr_after_bounces)
+        p_survive = new_throughput.amax(-1)
+        rr_kill = rr_active & (u(sampling.P_RR) > p_survive)
+        new_throughput = torch.where(
+            (rr_active & ~rr_kill)[..., None],
+            new_throughput / torch.clamp(p_survive, min=pmath.EPS)[..., None],
+            new_throughput,
+        )
+
+        new_bounce = state.bounce - 1
+        continues = shading & up_facing & ~rr_kill & (new_bounce > 0)
+        terminated_here = shading & (~up_facing | rr_kill | (new_bounce <= 0))
+
+        # Merge lane updates.
+        cont_or_pass = passthrough | continues
+        next_orig = torch.where(
+            passthrough[..., None],
+            position + state.dirn * pmath.EPS,
+            torch.where(
+                continues[..., None], position + d_new * pmath.EPS, state.orig
+            ),
+        )
+        next_dirn = torch.where(continues[..., None], d_new, state.dirn)
+        next_throughput = torch.where(
+            continues[..., None], new_throughput, state.throughput
+        )
+        next_bounce = torch.where(continues, new_bounce, state.bounce)
+        next_alive = alive & cont_or_pass & ~backface & ~terminated_here
+
+        return RayState(
+            orig=next_orig,
+            dirn=next_dirn,
+            radiance=radiance,
+            throughput=next_throughput,
+            alpha=alpha,
+            alive=next_alive,
+            bounce=next_bounce,
+            pixel_ids=pix,
+            sample_ids=smp,
+        )
+
+    return shade
+
+
+def make_integrator(static: SceneStatic, cfg: RenderConfig, closest: Callable,
+                    any_hit: Callable):
+    """The forward integrator ``(fs, pixel_ids, sample_ids) -> (radiance
+    [R, 3], alpha [R])``.  ``closest(fs, orig, dirn) -> Hit`` and
+    ``any_hit(fs, orig, dirn) -> [R] bool`` are the intersection backend."""
+    q = cfg.quirks
+    # Opacity passthrough does not consume a bounce: headroom only when some
+    # material can pass rays through.
+    extra = cfg.opacity_extra_iters if static.has_translucent else 0
+    max_iters = cfg.bounces + extra
+    do_compact = sorting.resolve_compact(static, cfg)
+    trace = make_trace_fn(static, cfg, closest, any_hit, do_compact)
+    shade = make_shade_fn(static, cfg)
+
+    def step(fs: FlatScene, it: int, state: RayState) -> RayState:
+        return shade(fs, it, state, *trace(fs, it, state))
+
+    def integrate(fs: FlatScene, pixel_ids, sample_ids):
+        orig, dirn = pcamera.generate_rays(
+            fs, pixel_ids, sample_ids, cfg.width, cfg.height, cfg.seed,
+            q.first_sample_centered, cfg.transparent_background,
+        )
+        r = pixel_ids.shape[0]
+        dev = pixel_ids.device
+        state = RayState(
+            orig=orig.contiguous(),
+            dirn=dirn,
+            radiance=torch.zeros((r, 3), device=dev),
+            throughput=torch.ones((r, 3), device=dev),
+            alpha=torch.zeros((r,), device=dev),
+            alive=torch.ones((r,), dtype=torch.bool, device=dev),
+            bounce=torch.full((r,), cfg.bounces, dtype=torch.int32, device=dev),
+            pixel_ids=pixel_ids.to(torch.int32),
+            sample_ids=sample_ids.to(torch.int32),
+        )
+        if do_compact:
+            return _chunked_forward(step, fs, state, max_iters, static)
+        it = 0
+        while it < max_iters and bool(state.alive.any()):
+            state = step(fs, it, state)
+            it += 1
+        return state.radiance, state.alpha
+
+    return integrate

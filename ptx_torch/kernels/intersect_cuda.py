@@ -1,0 +1,319 @@
+"""The planned tile traversal: three hand-written CUDA kernels and their
+plain torch versions (port of the kernels and wrappers of
+``ptx/kernels/intersect_pallas.py``).
+
+* :func:`exact_gate` - ``csrc/exact_gate.cu``, plain version
+  :func:`_exact_gate`: per-[ray block x tile] gate and least entry distance.
+* :func:`closest_sweep` / :func:`any_sweep` - ``csrc/tile_sweep.cu``, plain
+  version :func:`_sweep`: each block's planned tiles front to back, the
+  Baldwin-Weber test and the packed-min key.
+
+A wrapper runs the plain version only for tensors on the CPU; for CUDA
+tensors it launches its kernel (and counts the launch in ``LAUNCHES``) or
+raises.  :func:`closest` / :func:`any_hit` wrap a sweep with the plan and,
+for the closest hit, the exact epilogue: one ``tri_attrs`` row gather, the
+Moller-Trumbore recompute of the winner, and
+``hit = (t_trunc < HIT_T) & (t_exact < INF)``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ptx_torch import geometry
+from ptx_torch.kernels import _build
+from ptx_torch.kernels.intersect import Hit, attrs_from_indices
+from ptx_torch.kernels.tiles import (
+    FRUSTUM_PLAN_TILES,
+    HIT_T,
+    INF,
+    INIT_KEY,
+    LANE_BITS,
+    RB,
+    SMALL_TILES,
+    TT,
+    _frustum_gate,
+    _pack_rays,
+    identity_plan,
+    sort_plan,
+)
+from ptx.scene.flatten import FlatScene
+
+# Kernel launches per wrapper since the last reset_launches().
+LAUNCHES = {"exact_gate": 0, "closest": 0, "any": 0}
+
+# float32(-EPS) and float32(1 + EPS), held as python floats that float32
+# represents exactly, so a comparison gives the same answer in any precision.
+_NEG_EPS = float(np.float32(-1.0e-4))
+_ONE_EPS = float(np.float32(1.0 + 1.0e-4))
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _on_cpu(*tensors) -> bool:
+    """True when every tensor lies on the CPU; False when all are on one
+    CUDA device; raises on anything else."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    return False
+
+
+def _check(t, name, dtype, shape):
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def _launch(fn, *args):
+    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {rc}")
+
+
+# --------------------------------------------------------------------------
+# Gate
+# --------------------------------------------------------------------------
+
+
+def _exact_gate(rays, boxes, max_elems: int = 1 << 22):
+    """Plain version of ``csrc/exact_gate.cu``: exact per-ray slab tests
+    reduced to the block level.  Returns ``(gated [B, T] bool,
+    near [B, T] float32)``.  Runs ``max_elems`` ray-box pairs at a time."""
+    nb = rays.shape[0] // RB
+    n_tiles = boxes.shape[0]
+    lo, hi = boxes[None, :, 0:3], boxes[None, :, 3:6]
+    gated = torch.empty((nb, n_tiles), dtype=torch.bool, device=rays.device)
+    near = torch.empty((nb, n_tiles), dtype=torch.float32, device=rays.device)
+    step = max(1, max_elems // (RB * max(n_tiles, 1)))
+    for b0 in range(0, nb, step):
+        b1 = min(nb, b0 + step)
+        r = rays[b0 * RB:b1 * RB]
+        o = r[:, None, 0:3]
+        inv_d = 1.0 / r[:, None, 3:6]
+        t0 = (lo - o) * inv_d
+        t1 = (hi - o) * inv_d
+        nan = torch.isnan(t0) | torch.isnan(t1)
+        tl = torch.where(nan, float("-inf"), torch.minimum(t0, t1))
+        th = torch.where(nan, float("inf"), torch.maximum(t0, t1))
+        near_r = tl.amax(-1)  # [n, T]
+        far = th.amin(-1)
+        enter = torch.where(near_r > 0.0, near_r, 0.0)
+        hit = (far >= enter).view(b1 - b0, RB, n_tiles)
+        gated[b0:b1] = hit.any(1)
+        near[b0:b1] = torch.where(
+            hit, enter.view(b1 - b0, RB, n_tiles), INF
+        ).amin(1)
+    return gated, near
+
+
+def exact_gate(rays, boxes):
+    """Per-[128-ray block x tile] (gated, least entry distance): the kernel
+    for CUDA tensors, :func:`_exact_gate` for CPU tensors."""
+    if _on_cpu(rays, boxes):
+        return _exact_gate(rays, boxes)
+    nb, n_tiles = rays.shape[0] // RB, boxes.shape[0]
+    _check(rays, "rays", torch.float32, (nb * RB, 8))
+    _check(boxes, "boxes", torch.float32, (n_tiles, 8))
+    if nb >= 65536:
+        raise ValueError(f"{rays.shape[0]} rays: at most 65535 blocks per launch")
+    gated = torch.empty((nb, n_tiles), dtype=torch.bool, device=rays.device)
+    near = torch.empty((nb, n_tiles), dtype=torch.float32, device=rays.device)
+    if nb and n_tiles:
+        _launch(_build.load().ptx_exact_gate, rays.data_ptr(), boxes.data_ptr(),
+                nb, n_tiles, gated.data_ptr(), near.data_ptr())
+        LAUNCHES["exact_gate"] += 1
+    return gated, near
+
+
+def _plan_tiles(rays, boxes):
+    """The block traversal plan ``(order, count, near)`` of
+    :func:`ptx_torch.kernels.tiles.sort_plan`: the exact gate up to
+    FRUSTUM_PLAN_TILES tiles, the conservative frustum gate above."""
+    if boxes.shape[0] > FRUSTUM_PLAN_TILES:
+        gated, near_blk = _frustum_gate(rays, boxes)
+    else:
+        gated, near_blk = exact_gate(rays, boxes)
+    return sort_plan(gated, near_blk)
+
+
+def _plan(rays, boxes):
+    nb, n_tiles = rays.shape[0] // RB, boxes.shape[0]
+    if n_tiles <= SMALL_TILES:
+        return identity_plan(nb, n_tiles, rays.device)
+    return _plan_tiles(rays, boxes)
+
+
+# --------------------------------------------------------------------------
+# Sweeps
+# --------------------------------------------------------------------------
+
+
+def _test_matrix(rays, tris):
+    """[b, RB, TT] Baldwin-Weber hit distances, INF where no hit.
+    ``rays`` [b, RB, 8]; ``tris`` [b, 12, TT] rows of ``tiles._bw_rows``.
+    Same operations in the same order as ``csrc/tile_sweep.cu``."""
+    ox, oy, oz = rays[..., 0:1], rays[..., 1:2], rays[..., 2:3]
+    dx, dy, dz = rays[..., 3:4], rays[..., 4:5], rays[..., 5:6]
+    row = [tris[:, i:i + 1, :] for i in range(12)]
+    nd = row[0] * dx + row[1] * dy + row[2] * dz
+    no = row[0] * ox + row[1] * oy + row[2] * oz + row[3]
+    t = -(no * torch.reciprocal(nd))
+    px = ox + t * dx
+    py = oy + t * dy
+    pz = oz + t * dz
+    beta = row[4] * px + row[5] * py + row[6] * pz + row[7]
+    gamma = row[8] * px + row[9] * py + row[10] * pz + row[11]
+    ok = (
+        (beta >= _NEG_EPS)
+        & (gamma >= _NEG_EPS)
+        & (beta <= _ONE_EPS)
+        & (beta + gamma <= _ONE_EPS)
+        & (t >= 0.0)
+    )
+    return torch.where(ok, t, INF)
+
+
+def _sweep(order, count, near, rays, tiles, any_mode: bool):
+    """Plain version of ``csrc/tile_sweep.cu``: all blocks step through
+    their plans in lockstep, each block with the kernel's exit rule.
+    Returns ``(t_trunc [R_pad] f32, tri [R_pad] i32)`` or, with
+    ``any_mode``, ``hit [R_pad] i32``."""
+    dev = rays.device
+    nb = rays.shape[0] // RB
+    r = rays.view(nb, RB, 8)
+    lane = torch.arange(TT, dtype=torch.int32, device=dev)
+    best_key = torch.full((nb, RB), INIT_KEY, dtype=torch.int32, device=dev)
+    best_tile = torch.zeros((nb, RB), dtype=torch.int32, device=dev)
+    hit = torch.zeros((nb, RB), dtype=torch.bool, device=dev)
+    bound = torch.full((nb,), INF, dtype=torch.float32, device=dev)
+    running = count > 0
+    for k in range(int(count.max()) if nb else 0):
+        if k > 0:
+            running &= hit.all(1).logical_not() if any_mode else near[:, k] < bound
+        running &= count > k
+        blocks = running.nonzero()[:, 0]
+        if blocks.numel() == 0:
+            break
+        tile = order[blocks, k]
+        t = _test_matrix(r[blocks], tiles[tile.long(), 0:12])
+        if any_mode:
+            hit[blocks] |= (t < INF).any(-1)
+            continue
+        key = (t.view(torch.int32) & ~LANE_BITS) | lane
+        kmin = key.amin(-1)
+        old = best_key[blocks]
+        closer = kmin < old
+        new_key = torch.where(closer, kmin, old)
+        best_key[blocks] = new_key
+        best_tile[blocks] = torch.where(closer, tile[:, None], best_tile[blocks])
+        bound[blocks] = (new_key & ~LANE_BITS).view(torch.float32).amax(1)
+    if any_mode:
+        return hit.view(-1).to(torch.int32)
+    empty = (count == 0)[:, None]
+    t = torch.where(empty, INF, (best_key & ~LANE_BITS).view(torch.float32))
+    tri = torch.where(empty, 0, best_tile * TT + (best_key & LANE_BITS))
+    return t.view(-1), tri.view(-1)
+
+
+def _check_sweep_args(order, count, near, rays, tiles):
+    nb, n_tiles = rays.shape[0] // RB, tiles.shape[0]
+    _check(order, "order", torch.int32, (nb, n_tiles))
+    _check(count, "count", torch.int32, (nb,))
+    _check(near, "near", torch.float32, (nb, n_tiles + 1))
+    _check(rays, "rays", torch.float32, (nb * RB, 8))
+    _check(tiles, "tiles", torch.float32, (n_tiles, 16, TT))
+    if tiles.data_ptr() % 16:
+        raise ValueError("tiles: not 16-byte aligned")
+    return nb, n_tiles
+
+
+def closest_sweep(order, count, near, rays, tiles):
+    """Closest planned-tile sweep: ``(t_trunc [R_pad], tri [R_pad])``."""
+    if _on_cpu(order, count, near, rays, tiles):
+        return _sweep(order, count, near, rays, tiles, any_mode=False)
+    nb, n_tiles = _check_sweep_args(order, count, near, rays, tiles)
+    t = torch.empty((nb * RB,), dtype=torch.float32, device=rays.device)
+    tri = torch.empty((nb * RB,), dtype=torch.int32, device=rays.device)
+    if nb:
+        _launch(_build.load().ptx_closest, order.data_ptr(), count.data_ptr(),
+                near.data_ptr(), rays.data_ptr(), tiles.data_ptr(), nb,
+                n_tiles, t.data_ptr(), tri.data_ptr())
+        LAUNCHES["closest"] += 1
+    return t, tri
+
+
+def any_sweep(order, count, near, rays, tiles):
+    """Any-hit planned-tile sweep: ``hit [R_pad]`` int32 (0/1)."""
+    if _on_cpu(order, count, near, rays, tiles):
+        return _sweep(order, count, near, rays, tiles, any_mode=True)
+    nb, n_tiles = _check_sweep_args(order, count, near, rays, tiles)
+    hit = torch.empty((nb * RB,), dtype=torch.int32, device=rays.device)
+    if nb:
+        _launch(_build.load().ptx_any, order.data_ptr(), count.data_ptr(),
+                near.data_ptr(), rays.data_ptr(), tiles.data_ptr(), nb,
+                n_tiles, hit.data_ptr())
+        LAUNCHES["any"] += 1
+    return hit
+
+
+# --------------------------------------------------------------------------
+# Backend
+# --------------------------------------------------------------------------
+
+
+def _scene_tiles(fs: FlatScene):
+    if fs.ptiles.shape[0] == 0 or fs.ptiles.shape[2] != TT:
+        raise ValueError(
+            "scene has no traversal tiles: attach them with "
+            "ptx_torch.render.ensure_accel (or kernels.tiles.attach_tiles)"
+        )
+    return fs.ptiles, fs.pboxes
+
+
+def closest(fs: FlatScene, orig, dirn) -> Hit:
+    """Closest hit through the planned tile traversal, then the exact
+    epilogue: the sweep only selects the winner (truncated t)."""
+    r = orig.shape[0]
+    rays, _ = _pack_rays(orig, dirn)
+    tiles, boxes = _scene_tiles(fs)
+    t_trunc, tri = closest_sweep(*_plan(rays, boxes), rays, tiles)
+    t_trunc, tri = t_trunc[:r], tri[:r]
+    n = fs.tri_a.shape[0]
+    # Out-of-range winners (no-hit lanes of a padded last tile) are clamped
+    # like a JAX gather; those lanes are masked by ``hit``.
+    tri = torch.clamp(tri, 0, n - 1).long()
+    at = fs.tri_attrs[tri] if fs.tri_attrs.shape[0] == n else None
+    if at is not None:
+        a, e1, e2 = at[:, 25:28], at[:, 28:31], at[:, 31:34]
+    else:
+        a, e1, e2 = fs.tri_a[tri], fs.tri_e1[tri], fs.tri_e2[tri]
+    t_exact, beta, gamma, _ = geometry.moller_trumbore(orig, dirn, a, e1, e2)
+    hit = (t_trunc < HIT_T) & (t_exact < INF)
+    t = torch.where(hit, t_exact, INF)
+    return attrs_from_indices(fs, t, tri, beta, gamma, hit, at=at)
+
+
+def any_hit(fs: FlatScene, orig, dirn):
+    """Occlusion through the planned tile traversal: [R] bool."""
+    r = orig.shape[0]
+    rays, _ = _pack_rays(orig, dirn)
+    tiles, boxes = _scene_tiles(fs)
+    return any_sweep(*_plan(rays, boxes), rays, tiles)[:r] > 0
+
+
+def make_backend():
+    """(closest, any_hit) pair of the tile traversal."""
+    return closest, any_hit

@@ -1,0 +1,81 @@
+"""Ray sort keys and dead-ray parking for survivor compaction (port of
+``ptx/kernels/sorting.py``).
+
+Rays are ordered by (coarse morton cell of the origin, direction octant) so
+each 128-ray block covers a small cell with a narrow cone and the tile gate
+culls; dead lanes are parked outside the scene, pointing away, so they sort
+into all-dead blocks that fail every gate.  The uint32 arithmetic of the
+JAX package is done in int64, where none of it overflows.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ptx.scene.flatten import SceneStatic
+
+# Bits per axis of the coarse morton grid (7 bits/axis = 21-bit cell id).
+MORTON_BITS = 7
+
+
+def resolve_compact(static: SceneStatic, cfg) -> bool:
+    """``cfg.sort_rays``: "off" and "on" force it, "auto" follows the scene
+    size (:func:`should_compact`)."""
+    if cfg.sort_rays == "off":
+        return False
+    if cfg.sort_rays == "on":
+        return True
+    return should_compact(static)
+
+
+def should_compact(static: SceneStatic) -> bool:
+    """Sorting and parking pay once the sweep spans several tiles."""
+    from ptx_torch.kernels.tiles import TT
+
+    return static.n_tris_padded > 4 * TT
+
+
+def _expand_bits(x):
+    """Spread the low 10 bits of ``x`` two zero bits apart (30-bit morton)."""
+    x = (x | (x << 16)) & 0x030000FF
+    x = (x | (x << 8)) & 0x0300F00F
+    x = (x | (x << 4)) & 0x030C30C3
+    x = (x | (x << 2)) & 0x09249249
+    return x
+
+
+def ray_keys(orig, dirn, lo, hi, bits: int = MORTON_BITS):
+    """[R] int32 sort keys: morton cell of the origin (primary), direction
+    octant (secondary)."""
+    lo = torch.tensor(lo, dtype=torch.float32, device=orig.device)
+    hi = torch.tensor(hi, dtype=torch.float32, device=orig.device)
+    extent = torch.clamp(hi - lo, min=1e-30)
+    n_cells = float(1 << bits)
+    q = torch.clamp((orig - lo) / extent * n_cells, 0.0, n_cells - 1.0)
+    q = q.to(torch.int64)
+    morton = (
+        _expand_bits(q[:, 0])
+        | (_expand_bits(q[:, 1]) << 1)
+        | (_expand_bits(q[:, 2]) << 2)
+    )
+    octant = (
+        (dirn[:, 0] >= 0).to(torch.int64)
+        | ((dirn[:, 1] >= 0).to(torch.int64) << 1)
+        | ((dirn[:, 2] >= 0).to(torch.int64) << 2)
+    )
+    return ((morton << 3) | octant).to(torch.int32)
+
+
+def park(orig, dirn, keep, static: SceneStatic):
+    """Move lanes where ``keep`` is False outside the scene, pointing away:
+    they hit nothing, fail every gate and share one morton cell.  Callers
+    mask those lanes' results."""
+    hi = torch.tensor(static.aabb_hi, dtype=torch.float32, device=orig.device)
+    lo = torch.tensor(static.aabb_lo, dtype=torch.float32, device=orig.device)
+    p_orig = hi + (hi - lo) + 1.0
+    p_dir = torch.tensor(
+        [0.57735027, 0.57735027, 0.57735027], dtype=torch.float32,
+        device=orig.device,
+    )
+    k = keep[..., None]
+    return torch.where(k, orig, p_orig), torch.where(k, dirn, p_dir)

@@ -1,0 +1,320 @@
+"""High-level single-device rendering API (port of ``ptx/render.py``).
+
+load scene -> attach the traversal tiles -> per-sample wavefront launches ->
+running mean (or claim blend) -> ACES/sRGB finalize.  The shared
+``RenderConfig`` keeps the JAX package's meanings, so one config object
+drives both packages:
+
+* ``intersector``: "pallas" is the planned tile traversal (the CUDA kernels
+  on a CUDA device, their plain versions on the CPU); "auto" picks it on
+  CUDA and follows the JAX package's CPU rule otherwise; "brute" is the
+  plain brute-force sweep; "bvh" is not ported yet.
+* ``shader``: "xla" is the plain torch shade stage; "auto" resolves to it
+  until the fused shade kernel is ported; "pallas" is refused.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ptx.config import RenderConfig
+from ptx.scene.flatten import FlatScene, SceneStatic
+from ptx_torch.integrator import accumulate
+from ptx_torch.integrator.wavefront import make_integrator
+from ptx_torch.scene.bridge import to_device, to_host
+
+# Upper bound on rays per integrator launch when auto-picking the launch
+# size; measured on a TPU and kept until the card's own sweep replaces it.
+MAX_RAYS_PER_LAUNCH = 1 << 15
+
+# What the port refuses, and the ROADMAP item that will bring it.
+NOT_PORTED = {
+    "bvh": "the BVH traversal backend is not ported yet (ROADMAP Queue A item 9)",
+    "shader": "the fused shade kernel is not ported yet (ROADMAP Queue A item 4)",
+    "checkpoint": "checkpoint/preview is not ported yet (ROADMAP Queue A item 7)",
+    "env": "environment maps are not ported yet (ROADMAP Queue A item 11)",
+    "visualize": "debug visualizations are not ported yet (ROADMAP Queue A item 11)",
+    "distributed": "multi-device rendering is not ported yet (ROADMAP Queue A item 12)",
+    "profile": "the port's profiling hook is not written yet (ROADMAP Queue A item 8)",
+}
+
+
+def load_scene(path: str, device=None, scene_work=None, env_image=None,
+               quirks=None, pad_multiple: int = 256
+               ) -> Tuple[FlatScene, SceneStatic]:
+    """Load + flatten a glTF scene, ``synthetic:<n_tris>[:seed]`` or
+    ``arch:<n_tris>`` with the JAX package's host code.  Returns numpy
+    arrays when ``device`` is None, else tensors on ``device``."""
+    if env_image is not None:
+        raise NotImplementedError(NOT_PORTED["env"])
+    if path.startswith("synthetic:"):
+        from ptx.scene.synthetic import load_synthetic
+
+        fs, static = load_synthetic(path)
+    elif path.startswith("arch:"):
+        from ptx.scene.arch import load_arch
+
+        fs, static = load_arch(path)
+    else:
+        from ptx.scene import gltf
+        from ptx.scene.flatten import apply_emissive_strength, flatten
+
+        scene = gltf.load(path, scene_work=scene_work)
+        fs, static = flatten(
+            scene, pad_multiple=pad_multiple,
+            base_dir=os.path.dirname(os.path.abspath(path)),
+        )
+        if quirks is not None and quirks.use_emissive_strength:
+            fs = apply_emissive_strength(fs, scene)
+    return (to_device(fs, device) if device is not None else fs), static
+
+
+def resolve_intersector(static: SceneStatic, cfg: RenderConfig, device) -> str:
+    name = cfg.intersector
+    if name == "auto":
+        if torch.device(device).type == "cuda":
+            name = "pallas"
+        else:
+            name = "brute" if static.n_tris_padded <= 65536 else "bvh"
+    if name == "bvh":
+        raise NotImplementedError(NOT_PORTED["bvh"])
+    if name not in ("brute", "pallas"):
+        raise ValueError(f"unknown intersector {name!r}")
+    return name
+
+
+def resolve_shader(cfg: RenderConfig) -> str:
+    """"xla" (the plain torch shade stage) for "auto" and "xla"."""
+    if cfg.shader == "pallas":
+        raise NotImplementedError(NOT_PORTED["shader"])
+    if cfg.shader not in ("auto", "xla"):
+        raise ValueError(f"unknown shader {cfg.shader!r}")
+    return "xla"
+
+
+def ensure_accel(fs: FlatScene, static: SceneStatic, cfg: RenderConfig,
+                 device=None):
+    """BVH-order the triangles (so 512-wide tiles are spatially tight) and
+    attach the traversal tiles when the resolved backend is the tile
+    traversal.  Runs on the host; returns tensors on ``device`` (numpy when
+    ``device`` is None)."""
+    name = resolve_intersector(static, cfg, device or "cpu")
+    fs = to_host(fs)
+    if name == "pallas":
+        from ptx_torch.kernels.tiles import attach_tiles
+
+        if static.n_tris > 2048 and static.n_bvh_nodes == 0:
+            from ptx.accel.bvh import build_bvh
+
+            fs, static = build_bvh(fs, static)
+        fs = attach_tiles(fs)
+    return (to_device(fs, device) if device is not None else fs), static
+
+
+def get_backend(static: SceneStatic, cfg: RenderConfig, device):
+    """The intersection backend pair (closest, any_hit)."""
+    if resolve_intersector(static, cfg, device) == "brute":
+        from ptx_torch.kernels.intersect import make_brute
+
+        return make_brute()
+    from ptx_torch.kernels import intersect_cuda
+
+    return intersect_cuda.make_backend()
+
+
+def make_integrator_for(static: SceneStatic, cfg: RenderConfig, device):
+    closest, any_hit = get_backend(static, cfg, device)
+    resolve_shader(cfg)
+    return make_integrator(static, cfg, closest, any_hit)
+
+
+def resolve_rays_per_batch(cfg: RenderConfig):
+    """Per-launch pixel chunk, or ``None`` for whole-frame launches: frames
+    above MAX_RAYS_PER_LAUNCH render in the largest divisor of the pixel
+    count that fits it, preferring multiples of 128.  An explicit
+    ``cfg.rays_per_batch`` wins."""
+    if cfg.rays_per_batch is not None:
+        return cfg.rays_per_batch
+    n_pixels = cfg.width * cfg.height
+    if n_pixels <= MAX_RAYS_PER_LAUNCH:
+        return None
+    for m in range(MAX_RAYS_PER_LAUNCH // 128, 0, -1):
+        if n_pixels % (128 * m) == 0:
+            return 128 * m
+    for c in range(MAX_RAYS_PER_LAUNCH, 0, -1):
+        if n_pixels % c == 0:
+            return c if c > 1 else None
+    return None
+
+
+def resolve_samples_per_launch(cfg: RenderConfig) -> int:
+    """How many image samples one wavefront launch carries."""
+    if cfg.rays_per_batch is not None:
+        return 1
+    n_pixels = cfg.width * cfg.height
+    if cfg.samples_per_launch is not None:
+        return max(1, min(cfg.samples_per_launch, cfg.samples))
+    return max(1, min(cfg.samples, MAX_RAYS_PER_LAUNCH // max(n_pixels, 1)))
+
+
+def make_sample_fn(static: SceneStatic, cfg: RenderConfig, device):
+    """``(fs, sample_id) -> (radiance [P, 3], alpha [P])`` for one full-image
+    sample, in pixel chunks of :func:`resolve_rays_per_batch`."""
+    integrator = make_integrator_for(static, cfg, device)
+    n_pixels = cfg.width * cfg.height
+    chunk = resolve_rays_per_batch(cfg) or n_pixels
+    if n_pixels % chunk:
+        raise ValueError(
+            f"rays_per_batch {chunk} must divide the pixel count {n_pixels}"
+        )
+
+    def sample_pass(fs: FlatScene, sample_id: int):
+        parts = []
+        for start in range(0, n_pixels, chunk):
+            pixel_ids = torch.arange(start, start + chunk, dtype=torch.int32,
+                                     device=device)
+            sample_ids = torch.full((chunk,), sample_id, dtype=torch.int32,
+                                    device=device)
+            parts.append(integrator(fs, pixel_ids, sample_ids))
+        return (torch.cat([p[0] for p in parts]),
+                torch.cat([p[1] for p in parts]))
+
+    return sample_pass
+
+
+def make_batched_sample_fn(static: SceneStatic, cfg: RenderConfig, k: int,
+                           device):
+    """``(fs, sample0) -> (radiance [k, P, 3], alpha [k, P])``: samples
+    ``sample0 .. sample0+k-1`` in one launch of k*P rays.  The RNG is keyed
+    by absolute (pixel, sample) ids, so this equals k single launches."""
+    integrator = make_integrator_for(static, cfg, device)
+    n_pixels = cfg.width * cfg.height
+
+    def batch_pass(fs: FlatScene, sample0: int):
+        pixel_ids = torch.arange(n_pixels, dtype=torch.int32,
+                                 device=device).repeat(k)
+        sample_ids = sample0 + torch.arange(
+            k, dtype=torch.int32, device=device
+        ).repeat_interleave(n_pixels)
+        radiance, alpha = integrator(fs, pixel_ids, sample_ids)
+        return radiance.reshape(k, n_pixels, 3), alpha.reshape(k, n_pixels)
+
+    return batch_pass
+
+
+def _update_mean(carry, sample_color, sample_alpha, n: int):
+    color, alpha = carry
+    inv = np.float32(1.0) / np.float32(n + 1)
+    return (color * n + sample_color) * inv, (alpha * n + sample_alpha) * inv
+
+
+def _update_mean_batch(carry, colors, alphas, n: int, count: int):
+    """Fold ``count`` valid samples of the k in ``colors`` [k, P, 3] into the
+    running mean."""
+    color, alpha = carry
+    k = colors.shape[0]
+    valid = (torch.arange(k, device=colors.device) < count).to(colors.dtype)
+    inv = np.float32(1.0) / np.float32(n + count)
+    return (
+        (color * n + (colors * valid[:, None, None]).sum(0)) * inv,
+        (alpha * n + (alphas * valid[:, None]).sum(0)) * inv,
+    )
+
+
+def _claim_step(carry, sample_color, sample_alpha, n: int):
+    """One claim-blend step (transparent background), see
+    ``accumulate.accumulate_claim``."""
+    color, alpha, claimed = carry
+    opaque = sample_alpha > 0.5
+    claim_now = opaque & ~claimed
+    blend = opaque & claimed
+    trans_on_claimed = ~opaque & claimed
+    inv = np.float32(1.0) / np.float32(n + 1)
+    new_color = torch.where(
+        claim_now[:, None],
+        sample_color,
+        torch.where(blend[:, None], (color * n + sample_color) * inv, color),
+    )
+    new_alpha = torch.where(
+        claim_now,
+        float(inv),
+        torch.where(blend | trans_on_claimed, (alpha * n + sample_alpha) * inv,
+                    alpha),
+    )
+    return new_color, new_alpha, claimed | claim_now
+
+
+def _update_claim_batch(carry, colors, alphas, n: int, count: int):
+    """Claim-blend the first ``count`` samples of the batch, in order."""
+    for i in range(count):
+        carry = _claim_step(carry, colors[i], alphas[i], n + i)
+    return carry
+
+
+@dataclasses.dataclass
+class RenderResult:
+    color: np.ndarray  # [H, W, 3] linear HDR mean
+    alpha: np.ndarray  # [H, W]
+    image: np.ndarray  # [H, W, 4] uint8 (ACES + sRGB)
+
+
+def render(fs: FlatScene, static: SceneStatic, cfg: RenderConfig,
+           device="cuda", progress: Optional[Callable] = None,
+           checkpoint_path: Optional[str] = None) -> RenderResult:
+    """Render ``cfg.samples`` progressive samples on ``device``.  ``fs``
+    may be numpy arrays or tensors."""
+    if checkpoint_path is not None:
+        raise NotImplementedError(NOT_PORTED["checkpoint"])
+    fs, static = ensure_accel(fs, static, cfg, device=device)
+    k = resolve_samples_per_launch(cfg)
+    if k > 1:
+        batch_fn, sample_fn = make_batched_sample_fn(static, cfg, k, device), None
+    else:
+        batch_fn, sample_fn = None, make_sample_fn(static, cfg, device)
+    return progressive_render(fs, static, cfg, sample_fn, batch_fn, k, device,
+                              progress=progress)
+
+
+def progressive_render(fs: FlatScene, static: SceneStatic, cfg: RenderConfig,
+                       sample_fn, batch_fn, k: int, device,
+                       progress: Optional[Callable] = None) -> RenderResult:
+    """The progressive sample loop: exactly one of ``sample_fn`` (k == 1) and
+    ``batch_fn`` (k > 1 samples per launch) traces; the running mean (or
+    claim blend) is carried on ``device``."""
+    p = cfg.width * cfg.height
+    carry = (torch.zeros((p, 3), device=device), torch.zeros((p,), device=device))
+    if cfg.transparent_background:
+        carry = carry + (torch.zeros((p,), dtype=torch.bool, device=device),)
+    s = 0
+    while s < cfg.samples:
+        if k > 1:
+            count = min(k, cfg.samples - s)
+            colors, alphas = batch_fn(fs, s)
+            if cfg.transparent_background:
+                carry = _update_claim_batch(carry, colors, alphas, s, count)
+            else:
+                carry = _update_mean_batch(carry, colors, alphas, s, count)
+            s += count
+        else:
+            radiance, alpha = sample_fn(fs, s)
+            if cfg.transparent_background:
+                carry = _claim_step(carry, radiance, alpha, s)
+            else:
+                carry = _update_mean(carry, radiance, alpha, s)
+            s += 1
+        if progress is not None:
+            progress(s, cfg.samples)
+
+    color, alpha = carry[0], carry[1]
+    image = accumulate.finalize(color, alpha)
+    h, w = cfg.height, cfg.width
+    return RenderResult(
+        color=color.cpu().numpy().reshape(h, w, 3),
+        alpha=alpha.cpu().numpy().reshape(h, w),
+        image=image.cpu().numpy().reshape(h, w, 4),
+    )

@@ -1,0 +1,132 @@
+"""Bilinear texture sampling over the flat texel pack (port of
+``ptx/scene/textures.py``).
+
+Wrap addressing uses float ``v - size * floor(v / size)`` and V is flipped,
+as in the JAX package.  The scene-sharded texel pack (``tex_shard_len > 0``)
+belongs to the multi-device port and is refused here.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ptx_torch import math as pmath
+from ptx.scene.flatten import (
+    FlatScene,
+    SLOT_ALBEDO,
+    SLOT_EMISSIVE,
+    SLOT_METALLIC,
+    SLOT_NORMAL,
+    SLOT_OPACITY,
+    SLOT_ROUGHNESS,
+)
+
+
+def sample_texture(fs: FlatScene, tex_idx, uv, static=None):
+    """Bilinear sample.  ``tex_idx``: [R] int pack slots; ``uv``: [R, 2].
+    Returns linear RGBA [R, 4]."""
+    if static is not None and getattr(static, "tex_shard_len", 0) > 0:
+        raise NotImplementedError(
+            "scene-sharded texture packs wait for the multi-device port "
+            "(ROADMAP Queue A item 12)"
+        )
+    tex_idx = tex_idx.long()
+    w = fs.tex_width[tex_idx].to(torch.float32)
+    h = fs.tex_height[tex_idx].to(torch.float32)
+
+    cx = uv[..., 0] * w - 0.5
+    cy = (1.0 - uv[..., 1]) * h - 0.5
+    x0 = torch.floor(cx)
+    y0 = torch.floor(cy)
+    dx = cx - x0
+    dy = cy - y0
+
+    def fwrap(v, size):
+        return v - size * torch.floor(v / size)
+
+    x0f = fwrap(x0, w)
+    x1f = fwrap(x0 + 1.0, w)
+    y0f = fwrap(y0, h)
+    y1f = fwrap(y0 + 1.0, h)
+    offset = fs.tex_offset[tex_idx]
+
+    def texel(xf, yf):
+        idx = offset + (yf * w + xf).to(torch.int32)
+        return fs.tex_texels[idx.long()]
+
+    top = pmath.lerp(texel(x0f, y0f), texel(x1f, y0f), dx[..., None])
+    bot = pmath.lerp(texel(x0f, y1f), texel(x1f, y1f), dx[..., None])
+    return pmath.lerp(top, bot, dy[..., None])
+
+
+def material_lookup(fs: FlatScene, mat_id, uv, static=None):
+    """All shading inputs for a wavefront of hits: a dict of per-ray
+    material properties.  The static facts recorded at flatten time
+    (``tex_slot_used`` and the two share flags) prune the fetch exactly as
+    the JAX package does, so the results are the same values."""
+    used = static.tex_slot_used if static is not None else (True,) * 7
+    share_op = static.opacity_shares_albedo if static is not None else False
+    share_mr = static.metallic_shares_roughness if static is not None else False
+
+    mat_id = mat_id.long()
+    tex = fs.mat_tex[mat_id] if any(used) else None  # [R, 7]
+    row = fs.mat_packed[mat_id]  # [R, 16]
+
+    alb_rgba = None
+    if used[SLOT_ALBEDO] or (used[SLOT_OPACITY] and share_op):
+        alb_rgba = sample_texture(fs, tex[..., SLOT_ALBEDO], uv, static)
+    albedo = row[..., 0:3]
+    if alb_rgba is not None and used[SLOT_ALBEDO]:
+        albedo = albedo * alb_rgba[..., :3]
+
+    opacity = row[..., 3]
+    if used[SLOT_OPACITY]:
+        if share_op:
+            op_a = torch.where(
+                tex[..., SLOT_OPACITY] == tex[..., SLOT_ALBEDO],
+                alb_rgba[..., 3],
+                torch.ones_like(opacity),
+            )
+        else:
+            op_a = sample_texture(fs, tex[..., SLOT_OPACITY], uv, static)[..., 3]
+        opacity = opacity * op_a
+
+    mr = None
+    if used[SLOT_ROUGHNESS] or (used[SLOT_METALLIC] and share_mr):
+        mr = sample_texture(fs, tex[..., SLOT_ROUGHNESS], uv, static)
+    roughness = row[..., 4]
+    if mr is not None and used[SLOT_ROUGHNESS]:
+        roughness = roughness * mr[..., 1]
+    metallic = row[..., 5]
+    if used[SLOT_METALLIC]:
+        mb = mr if share_mr else sample_texture(
+            fs, tex[..., SLOT_METALLIC], uv, static
+        )
+        metallic = metallic * mb[..., 2]
+
+    emissive = row[..., 6:9]
+    if used[SLOT_EMISSIVE]:
+        emissive = emissive * sample_texture(
+            fs, tex[..., SLOT_EMISSIVE], uv, static
+        )[..., :3]
+
+    if used[SLOT_NORMAL]:
+        tangent_normal = (
+            sample_texture(fs, tex[..., SLOT_NORMAL], uv, static)[..., :3] * 2.0
+            - 1.0
+        )
+    else:
+        tangent_normal = torch.tensor(
+            [0.0, 0.0, 1.0], dtype=torch.float32, device=uv.device
+        ).expand(uv.shape[:-1] + (3,))
+
+    return dict(
+        albedo=albedo,
+        opacity=opacity,
+        roughness=roughness,
+        metallic=metallic,
+        emissive=emissive,
+        tangent_normal=tangent_normal,
+        ior=row[..., 9],
+        shadow_catcher=row[..., 10],
+    )

@@ -1,0 +1,158 @@
+"""The port's closest and any hit held against the JAX package's Pallas
+traversal (``closest_pallas`` / ``any_pallas``, interpret mode) on the same
+rays: ``arch:2000`` takes the planned path (10 tiles), ``synthetic:2000`` the
+small path (4 tiles, served by the identity plan in the port).
+
+Tolerances: the JAX kernel in interpret mode takes its reciprocal in
+bfloat16 and refines it with one Newton step, where the port divides
+exactly, so swept t values differ in the 16th bit and winners at a
+truncated-key near tie may flip: ``tri`` agrees on all but 0.1 % of rays.
+After the epilogue's exact Moller-Trumbore recompute, t, position and
+normal agree to rtol 1e-5 wherever the winner agrees.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ptx.accel.bvh import build_bvh
+from ptx.kernels import intersect as jintersect
+from ptx.kernels import intersect_pallas as kp
+from ptx.scene.arch import load_arch
+from ptx.scene.synthetic import load_synthetic
+from ptx_torch.kernels import intersect, intersect_cuda, sorting, tiles
+from ptx_torch.scene.bridge import to_device
+from ptx_torch.scene.camera import generate_rays
+
+MAX_FLIP_SHARE = 1e-3
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+@functools.lru_cache(maxsize=None)
+def _scene(spec):
+    if spec.startswith("arch"):
+        fs, static = build_bvh(*load_arch(spec))
+    else:
+        fs, static = load_synthetic(spec)
+    fs = tiles.attach_tiles(fs)
+    jfs = fs._replace(**{k: jnp.asarray(v) for k, v in fs._asdict().items()})
+    return fs, jfs, to_device(fs, "cpu"), static
+
+
+def _rays(fs_t, static, kind):
+    if kind == "camera":
+        pix = torch.arange(1024, dtype=torch.int32)
+        orig, dirn = generate_rays(fs_t, pix, pix % 2, 32, 32)
+        return orig.contiguous(), dirn
+    rng = np.random.default_rng(0)
+    n = 1000
+    lo, hi = np.asarray(static.aabb_lo), np.asarray(static.aabb_hi)
+    orig = (lo + (hi - lo) * rng.random((n, 3))).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    keep = _t(rng.random(n) < 0.75)
+    return sorting.park(_t(orig), _t(d), keep, static)
+
+
+@functools.partial(jax.jit, static_argnums=(3,))
+def _jax_sweep(rays, ptiles, pboxes, any_mode):
+    kernel = kp._any_kernel if any_mode else kp._closest_kernel
+    r_pad = rays.shape[0]
+    shapes = ([jax.ShapeDtypeStruct((r_pad, 1), jnp.int32)] if any_mode else
+              [jax.ShapeDtypeStruct((r_pad, 1), jnp.float32),
+               jax.ShapeDtypeStruct((r_pad, 1), jnp.int32)])
+    return kp._grid_call(kernel, rays, ptiles, pboxes, shapes, True)
+
+
+_jax_closest = jax.jit(functools.partial(kp.closest_pallas, interpret=True))
+_jax_any = jax.jit(functools.partial(kp.any_pallas, interpret=True))
+
+CASES = [(s, k) for s in ("arch:2000", "synthetic:2000")
+         for k in ("camera", "scattered")]
+
+
+@pytest.mark.parametrize("spec,kind", CASES)
+def test_closest_matches_pallas(spec, kind):
+    fs, jfs, fs_t, static = _scene(spec)
+    orig, dirn = _rays(fs_t, static, kind)
+    r = orig.shape[0]
+
+    # Kernel level: the swept winner.
+    rays, _ = tiles._pack_rays(orig, dirn)
+    plan = intersect_cuda._plan(rays, fs_t.pboxes)
+    t_trunc, tri = intersect_cuda.closest_sweep(*plan, rays, fs_t.ptiles)
+    ref_t, ref_tri = (np.asarray(x)[:, 0] for x in _jax_sweep(
+        jnp.asarray(rays.numpy()), jfs.ptiles, jfs.pboxes, False))
+    hit = t_trunc.numpy() < tiles.HIT_T
+    np.testing.assert_array_equal(hit, ref_t < tiles.HIT_T)
+    same = (tri.numpy() == ref_tri) | ~hit
+    assert (~same).mean() <= MAX_FLIP_SHARE
+
+    # After the epilogue.
+    h = intersect_cuda.closest(fs_t, orig, dirn)
+    ref = _jax_closest(jfs, jnp.asarray(orig.numpy()), jnp.asarray(dirn.numpy()))
+    np.testing.assert_array_equal(h.hit.numpy(), np.asarray(ref.hit))
+    m = h.hit.numpy() & same[:r]
+    assert m.mean() > 0.02
+    # Absolute floors for components that cross zero: a unit normal's
+    # scale is 1 and a position's is the scene's extent.
+    extent = float(np.abs(np.asarray([static.aabb_lo, static.aabb_hi])).max())
+    for name, atol in (("t", 0.0), ("position", 1e-5 * extent), ("normal", 1e-5)):
+        np.testing.assert_allclose(getattr(h, name).numpy()[m],
+                                   np.asarray(getattr(ref, name))[m],
+                                   rtol=1e-5, atol=atol, err_msg=name)
+    np.testing.assert_array_equal(h.mat_id.numpy()[m], np.asarray(ref.mat_id)[m])
+
+
+@pytest.mark.parametrize("spec,kind", CASES)
+def test_any_matches_pallas(spec, kind):
+    fs, jfs, fs_t, static = _scene(spec)
+    orig, dirn = _rays(fs_t, static, kind)
+    got = intersect_cuda.any_hit(fs_t, orig, dirn)
+    ref = _jax_any(jfs, jnp.asarray(orig.numpy()), jnp.asarray(dirn.numpy()))
+    assert got.dtype == torch.bool and got.shape == (orig.shape[0],)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def test_sweep_wrappers_run_plain_on_cpu():
+    fs, _, fs_t, static = _scene("arch:2000")
+    rays, _ = tiles._pack_rays(*_rays(fs_t, static, "scattered"))
+    plan = intersect_cuda._plan_tiles(rays, fs_t.pboxes)
+    intersect_cuda.reset_launches()
+    t, tri = intersect_cuda.closest_sweep(*plan, rays, fs_t.ptiles)
+    hit = intersect_cuda.any_sweep(*plan, rays, fs_t.ptiles)
+    assert intersect_cuda.LAUNCHES == {"exact_gate": 0, "closest": 0, "any": 0}
+    t_p, tri_p = intersect_cuda._sweep(*plan, rays, fs_t.ptiles, any_mode=False)
+    assert torch.equal(t, t_p) and torch.equal(tri, tri_p)
+    assert torch.equal(hit, intersect_cuda._sweep(*plan, rays, fs_t.ptiles, True))
+    # Every ray with a closest hit is occluded, and no other.
+    assert torch.equal(hit > 0, t < tiles.HIT_T)
+
+
+def test_closest_needs_tiles():
+    fs, static = load_synthetic("synthetic:2000")
+    orig = torch.zeros((4, 3))
+    with pytest.raises(ValueError, match="traversal tiles"):
+        intersect_cuda.closest(to_device(fs, "cpu"), orig, orig + 1.0)
+
+
+@pytest.mark.parametrize("spec", ["arch:2000", "synthetic:2000"])
+def test_brute_matches_jax_brute(spec):
+    fs, jfs, fs_t, static = _scene(spec)
+    orig, dirn = _rays(fs_t, static, "scattered")
+    jo, jd = jnp.asarray(orig.numpy()), jnp.asarray(dirn.numpy())
+    ref = jintersect.brute_closest(jfs, jo, jd)
+    got = intersect.brute_closest(fs_t, orig, dirn)
+    np.testing.assert_array_equal(got[4].numpy(), np.asarray(ref[4]))
+    m = got[4].numpy() & (got[1].numpy() == np.asarray(ref[1]))
+    assert m.mean() >= got[4].numpy().mean() - MAX_FLIP_SHARE
+    np.testing.assert_allclose(got[0].numpy()[m], np.asarray(ref[0])[m], rtol=1e-5)
+    np.testing.assert_array_equal(intersect.brute_any(fs_t, orig, dirn).numpy(),
+                                  np.asarray(jintersect.brute_any(jfs, jo, jd)))

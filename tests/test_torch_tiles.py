@@ -1,0 +1,172 @@
+"""The port's tile pack, gates, plan and ray keys held against the JAX
+package (``ptx.kernels.intersect_pallas`` in interpret mode, and
+``ptx.kernels.sorting``) on the same numpy inputs.  Everything here is exact:
+the pack is the same numpy code, and the gates and keys are the same IEEE
+operations."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ptx.accel.bvh import build_bvh
+from ptx.kernels import intersect_pallas as kp
+from ptx.kernels import sorting as jsorting
+from ptx.scene.arch import load_arch
+from ptx.scene.synthetic import load_synthetic
+from ptx_torch.kernels import intersect_cuda, sorting, tiles
+from ptx_torch.scene.bridge import to_device
+from ptx_torch.scene.camera import generate_rays
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+@pytest.fixture(scope="module")
+def arch():
+    fs, static = load_arch("arch:2000")
+    fs, static = build_bvh(fs, static)
+    return tiles.attach_tiles(fs), static
+
+
+def _ray_sets(fs, static):
+    """Camera rays (aligned count) and scattered rays from inside the scene,
+    a quarter parked (unaligned count)."""
+    pix = torch.arange(1024, dtype=torch.int32)
+    cam = generate_rays(to_device(fs, "cpu"), pix, pix % 3, 32, 32)
+    rng = np.random.default_rng(0)
+    n = 1000
+    lo, hi = np.asarray(static.aabb_lo), np.asarray(static.aabb_hi)
+    orig = (lo + (hi - lo) * rng.random((n, 3))).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    keep = _t(rng.random(n) < 0.75)
+    scat = sorting.park(_t(orig), _t(d), keep, static)
+    return [(cam[0].contiguous(), cam[1]), scat]
+
+
+@pytest.mark.parametrize("spec", ["arch:2000", "synthetic:2000", "synthetic:1700"])
+def test_attach_tiles_bit_identical(spec):
+    load = load_arch if spec.startswith("arch") else load_synthetic
+    fs, static = load(spec)
+    if spec.startswith("arch"):
+        fs, static = build_bvh(fs, static)
+    ref = kp.attach_tiles(fs)
+    got = tiles.attach_tiles(fs)
+    assert got.ptiles.dtype == np.float32 and got.ptiles.shape[1:] == (16, tiles.TT)
+    np.testing.assert_array_equal(got.ptiles, ref.ptiles)
+    np.testing.assert_array_equal(got.pboxes, ref.pboxes)
+
+
+def test_pack_rays_matches(arch):
+    fs, static = arch
+    for orig, dirn in _ray_sets(fs, static):
+        ref, r_pad = kp._pack_rays(jnp.asarray(orig.numpy()), jnp.asarray(dirn.numpy()))
+        got, got_pad = tiles._pack_rays(orig, dirn)
+        assert got_pad == r_pad
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def test_exact_gate_bit_identical(arch):
+    fs, static = arch
+    boxes = fs.pboxes
+    shares = []
+    for orig, dirn in _ray_sets(fs, static):
+        rays, _ = tiles._pack_rays(orig, dirn)
+        jr, jb = jnp.asarray(rays.numpy()), jnp.asarray(boxes)
+        g, n = intersect_cuda._exact_gate(rays, _t(boxes))
+        for ref_g, ref_n in (kp._exact_gate(jr, jb),
+                             kp._exact_gate_pallas(jr, jb, interpret=True)):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(ref_g))
+            np.testing.assert_array_equal(n.numpy(), np.asarray(ref_n))
+        shares.append(float(g.float().mean()))
+    # The camera sits inside every tile box; scattered rays gate some out.
+    assert 0 < min(shares) and max(shares) <= 1 and min(shares) < 1
+
+
+def test_exact_gate_wrapper_runs_plain_on_cpu(arch):
+    fs, static = arch
+    rays, _ = tiles._pack_rays(*_ray_sets(fs, static)[0])
+    intersect_cuda.reset_launches()
+    got = intersect_cuda.exact_gate(rays, _t(fs.pboxes))
+    ref = intersect_cuda._exact_gate(rays, _t(fs.pboxes))
+    assert intersect_cuda.LAUNCHES["exact_gate"] == 0
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    with pytest.raises(ValueError):
+        intersect_cuda.exact_gate(rays.to("meta"), _t(fs.pboxes).to("meta"))
+
+
+def test_frustum_gate_matches(arch):
+    fs, static = arch
+    for orig, dirn in _ray_sets(fs, static):
+        rays, _ = tiles._pack_rays(orig, dirn)
+        ref = kp._frustum_gate(jnp.asarray(rays.numpy()), jnp.asarray(fs.pboxes))
+        got = tiles._frustum_gate(rays, _t(fs.pboxes))
+        for g, r in zip(got, ref):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+
+
+def _assert_plans_match(got, ref):
+    order, count, near = (x.numpy() for x in got)
+    r_order, r_count, r_near = (np.asarray(x) for x in ref)
+    np.testing.assert_array_equal(count, r_count)
+    np.testing.assert_array_equal(near, r_near)
+    # Tiles at equal entry distance may sort either way: compare the order
+    # where a slot's key is distinct from its neighbours'.
+    s = near[:, :-1]
+    distinct = np.ones_like(s, bool)
+    distinct[:, 1:] &= s[:, 1:] != s[:, :-1]
+    distinct[:, :-1] &= s[:, :-1] != s[:, 1:]
+    live = np.arange(s.shape[1])[None, :] < count[:, None]
+    np.testing.assert_array_equal(order[distinct & live], r_order[distinct & live])
+    return (distinct & live).mean()
+
+
+@pytest.mark.parametrize("frustum", [False, True])
+def test_plan_tiles_matches(arch, monkeypatch, frustum):
+    fs, static = arch
+    if frustum:
+        monkeypatch.setattr(kp, "FRUSTUM_PLAN_TILES", 0)
+        monkeypatch.setattr(intersect_cuda, "FRUSTUM_PLAN_TILES", 0)
+    compared = []
+    for orig, dirn in _ray_sets(fs, static):
+        rays, _ = tiles._pack_rays(orig, dirn)
+        ref = kp._plan_tiles(jnp.asarray(rays.numpy()), jnp.asarray(fs.pboxes),
+                             interpret=True)
+        got = intersect_cuda._plan_tiles(rays, _t(fs.pboxes))
+        compared.append(_assert_plans_match(got, ref))
+    assert max(compared) > 0.05
+
+
+def test_ray_keys_and_park_match(arch):
+    fs, static = arch
+    rng = np.random.default_rng(1)
+    n = 2048
+    orig = rng.uniform(-20, 20, (n, 3)).astype(np.float32)
+    dirn = rng.normal(size=(n, 3)).astype(np.float32)
+    dirn[:16, 0] = 0.0
+    dirn[16:32, 1] = -0.0
+    keep = rng.random(n) < 0.5
+    ref = jsorting.ray_keys(orig, dirn, static.aabb_lo, static.aabb_hi)
+    got = sorting.ray_keys(_t(orig), _t(dirn), static.aabb_lo, static.aabb_hi)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    ref_p = jsorting.park(jnp.asarray(orig), jnp.asarray(dirn), jnp.asarray(keep),
+                          static)
+    got_p = sorting.park(_t(orig), _t(dirn), _t(keep), static)
+    for g, r in zip(got_p, ref_p):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    assert sorting.should_compact(static) == jsorting.should_compact(static)
+
+
+def test_stable_dead_last_sort_matches():
+    rng = np.random.default_rng(2)
+    key = rng.integers(0, 64, 4096).astype(np.int32)  # many equal keys
+    alive = rng.random(4096) < 0.6
+    masked = np.where(alive, key, np.int32(1 << 30))
+    ref = np.asarray(jax.numpy.argsort(jnp.asarray(masked)))
+    got = torch.argsort(_t(masked), stable=True).numpy()
+    np.testing.assert_array_equal(got, ref)
