@@ -6,22 +6,32 @@
 Phases (any failure raises, and the exit code is then non-zero):
 1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build: nvcc builds ``ptx_torch/csrc/*.cu`` (timed);
-3. each CUDA kernel against its plain torch version, on the card, at the
-   main path's shapes: 32,768 camera rays and 32,768 seeded random rays from
-   inside ``arch:300000`` (dead lanes parked, sorted as the wavefront is),
-   then ``synthetic:2000`` (4 tiles, identity plan); median times by CUDA
-   events;
-4. the main path: ``ptx_torch.render.render`` on ``arch:300000`` at
-   256x256, 4 spp, 4 bounces with the default config, with every kernel's
-   launch count; then 64x64, 2 spp through the kernels against the plain
-   brute-force intersector;
-5. the CLI writes a PNG.
+3. each traversal kernel against its plain torch version, on the card, at
+   the main path's shapes: 32,768 camera rays and 32,768 seeded random rays
+   from inside ``arch:300000`` (dead lanes parked, sorted as the wavefront
+   is), then ``synthetic:2000`` (4 tiles): the planned sweeps on the
+   identity plan, and the small sweeps against their plain version and
+   against those; median times by CUDA events;
+4. the sun and shade kernels against their plain versions at 32,768 lanes:
+   the first bounce of the main path's wavefront, and seeded random inputs
+   that reach every branch, under the three quirk sets, with and without a
+   sun;
+5. the main path: ``ptx_torch.render.render`` on ``arch:300000`` at
+   256x256, 4 spp, 4 bounces with the default config (shader "auto", the
+   fused kernels), with every kernel's launch count; then the sample loop
+   with shader "xla" and "auto" in turns (paths/s, device kernels per
+   sample), and the two images against each other; then 64x64, 2 spp
+   through the kernels against the plain brute-force intersector;
+6. the small-scene path: ``synthetic:2000`` lit by the arch scene's sun at
+   64x64, 2 spp, through the small sweeps, against the brute path;
+7. the CLI writes a PNG.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -48,6 +58,26 @@ REPLACES = {
                 "ptx/kernels/intersect_pallas.py:507"),
     "any": ("ptx_torch/csrc/tile_sweep.cu",
             "ptx/kernels/intersect_pallas.py:599"),
+    "closest_small": ("ptx_torch/csrc/tile_sweep.cu",
+                      "ptx/kernels/intersect_pallas.py:662"),
+    "any_small": ("ptx_torch/csrc/tile_sweep.cu",
+                  "ptx/kernels/intersect_pallas.py:678"),
+    "sun": ("ptx_torch/csrc/shade.cu", "ptx/kernels/shade_pallas.py:172"),
+    "shade": ("ptx_torch/csrc/shade.cu", "ptx/kernels/shade_pallas.py:239"),
+}
+# The kernels each path must launch.
+MAIN_PATH_KERNELS = ("exact_gate", "closest", "any", "sun", "shade")
+SMALL_PATH_KERNELS = ("closest_small", "any_small", "sun", "shade")
+# Each kernel's CUDA function in a profiler trace: (base name, template
+# flag ANY / HAS_SUN or None).
+CUDA_FUNCTIONS = {
+    "exact_gate": ("exact_gate_kernel", None),
+    "closest": ("tile_sweep_kernel", False),
+    "any": ("tile_sweep_kernel", True),
+    "closest_small": ("small_sweep_kernel", False),
+    "any_small": ("small_sweep_kernel", True),
+    "sun": ("sun_kernel", None),
+    "shade": ("shade_kernel", True),
 }
 
 
@@ -72,6 +102,38 @@ def median_ms(fn, reps: int, warmup: int = 2) -> float:
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def device_ms(name, fn, reps: int = 5):
+    """Device time per call of kernel ``name`` alone (``torch.profiler``),
+    without the host time of its wrapper; None if the trace holds none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    base, flag = CUDA_FUNCTIONS[name]
+    marks = (None if flag is None else
+             ("<true>", "ILb1E") if flag else ("<false>", "ILb0E"))
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.end - e.time_range.start for e in prof.events()
+          if e.device_type == DeviceType.CUDA and base in e.name
+          and (marks is None or any(m in e.name for m in marks))]
+    return sum(us) / 1e3 / reps if len(us) == reps else None
+
+
+def time_kernel(timing, name, tag, kernel_fn, plain_fn, reps):
+    """CUDA-event medians of one call of the kernel's wrapper and of its
+    plain version, and the kernel's own device time."""
+    timing[name] = (median_ms(kernel_fn, reps), median_ms(plain_fn, reps))
+    dev = device_ms(name, kernel_fn, reps)
+    log(f"{tag}: {name} kernel {timing[name][0]:.3f} ms per call "
+        f"({'not measured' if dev is None else f'{dev:.4f} ms'} on the device "
+        f"alone), plain torch {timing[name][1]:.3f} ms")
 
 
 def camera_rays(fs, width, height, n, device):
@@ -109,11 +171,47 @@ def scattered_rays(static, n, seed, device):
     return orig[perm].contiguous(), dirn[perm].contiguous()
 
 
+def compare_winners(tag, fs, orig, dirn, got, want):
+    """Closest sweep results ``(t, tri)`` of two versions: hit masks equal,
+    winners equal on >= MIN_AGREE of rays, and each differing winner a near
+    tie (the exact Moller-Trumbore t of both agrees to TIE_RTOL).  Returns
+    (share, flips, max |dt| where both agree)."""
+    import torch
+
+    from ptx_torch import geometry
+    from ptx_torch.kernels.tiles import HIT_T
+
+    (t_k, tri_k), (t_p, tri_p) = got, want
+    hit_k, hit_p = t_k < HIT_T, t_p < HIT_T
+    if not torch.equal(hit_k, hit_p):
+        raise AssertionError(f"{tag}: closest hit mask differs")
+    same = (tri_k == tri_p) | ~hit_k
+    share = float(same.float().mean())
+    flips = int((~same).sum())
+    if flips:
+        r = orig.shape[0]
+        bad = (~same[:r]).nonzero()[:, 0]
+        ta = [
+            geometry.moller_trumbore(
+                orig[bad], dirn[bad], fs.tri_a[tri[:r][bad].long()],
+                fs.tri_e1[tri[:r][bad].long()], fs.tri_e2[tri[:r][bad].long()],
+            )[0]
+            for tri in (tri_k, tri_p)
+        ]
+        rel = float(((ta[0] - ta[1]).abs() / ta[1].abs().clamp(min=1e-30)).max())
+        if rel > TIE_RTOL:
+            raise AssertionError(f"{tag}: closest winner differs, rel t {rel}")
+    if share < MIN_AGREE:
+        raise AssertionError(f"{tag}: closest tri agrees on {share:.6f}")
+    both = hit_k & hit_p & same
+    err = float((t_k[both] - t_p[both]).abs().max()) if bool(both.any()) else 0.0
+    return share, flips, err
+
+
 def check_kernels(fs, static, ray_sets, label, timing, reps):
     """Kernel vs plain version on the card for each (name, orig, dirn)."""
     import torch
 
-    from ptx_torch import geometry
     from ptx_torch.kernels import intersect_cuda as K
     from ptx_torch.kernels.tiles import HIT_T, _pack_rays
 
@@ -134,43 +232,19 @@ def check_kernels(fs, static, ray_sets, label, timing, reps):
             log(f"{tag}: exact_gate == plain (bit for bit); "
                 f"{float(plan[1].float().mean()):.1f} tiles planned per block")
             if timing is not None:
-                timing["exact_gate"] = (
-                    median_ms(lambda: K.exact_gate(rays, boxes), reps),
-                    median_ms(lambda: K._exact_gate(rays, boxes), reps),
-                )
+                time_kernel(timing, "exact_gate", tag,
+                            lambda: K.exact_gate(rays, boxes),
+                            lambda: K._exact_gate(rays, boxes), reps)
         else:
             plan = K._plan(rays, boxes)
 
         t_k, tri_k = K.closest_sweep(*plan, rays, tiles)
-        t_p, tri_p = K._sweep(*plan, rays, tiles, any_mode=False)
-        hit_k, hit_p = t_k < HIT_T, t_p < HIT_T
-        if not torch.equal(hit_k, hit_p):
-            raise AssertionError(f"{tag}: closest hit mask differs from plain")
-        same = (tri_k == tri_p) | ~hit_k
-        share = float(same.float().mean())
-        flips = int((~same).sum())
-        if flips:
-            # A differing winner must be a near tie: exact MT t agrees.
-            r = orig.shape[0]
-            bad = (~same[:r]).nonzero()[:, 0]
-            ta = [
-                geometry.moller_trumbore(
-                    orig[bad], dirn[bad], fs.tri_a[tri[:r][bad].long()],
-                    fs.tri_e1[tri[:r][bad].long()], fs.tri_e2[tri[:r][bad].long()],
-                )[0]
-                for tri in (tri_k, tri_p)
-            ]
-            rel = float(((ta[0] - ta[1]).abs() / ta[1].abs().clamp(min=1e-30)).max())
-            if rel > TIE_RTOL:
-                raise AssertionError(f"{tag}: closest winner differs, rel t {rel}")
-        if share < MIN_AGREE:
-            raise AssertionError(f"{tag}: closest tri agrees on {share:.6f}")
-        both = hit_k & hit_p & same
-        errs["closest"] = max(errs.get("closest", 0.0),
-                              float((t_k[both] - t_p[both]).abs().max())
-                              if bool(both.any()) else 0.0)
+        share, flips, err = compare_winners(
+            tag, fs, orig, dirn, (t_k, tri_k),
+            K._sweep(*plan, rays, tiles, any_mode=False))
+        errs["closest"] = max(errs.get("closest", 0.0), err)
         log(f"{tag}: closest tri agrees on {share:.6f} of rays "
-            f"({flips} near-tie flips), {float(hit_k.float().mean()):.3f} hit")
+            f"({flips} near-tie flips), {float((t_k < HIT_T).float().mean()):.3f} hit")
 
         a_k = K.any_sweep(*plan, rays, tiles)
         a_p = K._sweep(*plan, rays, tiles, any_mode=True)
@@ -181,17 +255,181 @@ def check_kernels(fs, static, ray_sets, label, timing, reps):
         log(f"{tag}: any agrees on {a_share:.6f} of rays, "
             f"{float(a_k.float().mean()):.3f} occluded")
         if timing is not None:
-            timing["closest"] = (
-                median_ms(lambda: K.closest_sweep(*plan, rays, tiles), reps),
-                median_ms(lambda: K._sweep(*plan, rays, tiles, False), reps),
-            )
-            timing["any"] = (
-                median_ms(lambda: K.any_sweep(*plan, rays, tiles), reps),
-                median_ms(lambda: K._sweep(*plan, rays, tiles, True), reps),
-            )
-            for k, (ms, plain) in timing.items():
-                log(f"{tag}: {k} kernel {ms:.3f} ms, plain torch {plain:.3f} ms")
+            time_kernel(timing, "closest", tag,
+                        lambda: K.closest_sweep(*plan, rays, tiles),
+                        lambda: K._sweep(*plan, rays, tiles, False), reps)
+            time_kernel(timing, "any", tag,
+                        lambda: K.any_sweep(*plan, rays, tiles),
+                        lambda: K._sweep(*plan, rays, tiles, True), reps)
     return errs
+
+
+def check_small(fs, ray_sets, label, timing, reps):
+    """The small sweeps (scenes of <= 4 tiles) on the card against their
+    plain version and against the planned sweep kernels on the identity
+    plan, for each (name, orig, dirn)."""
+    import torch
+
+    from ptx_torch.kernels import intersect_cuda as K
+    from ptx_torch.kernels.tiles import RB, _pack_rays, identity_plan
+
+    tiles = fs.ptiles
+    errs = {"closest_small": 0.0, "any_small": 0.0}
+    for name, orig, dirn in ray_sets:
+        rays, _ = _pack_rays(orig, dirn)
+        tag = f"{label}/{name}"
+        plan = identity_plan(rays.shape[0] // RB, tiles.shape[0], rays.device)
+        got = K.closest_small(rays, tiles)
+        for other, want in (("plain", K._small_sweep(rays, tiles, False)),
+                            ("identity-plan sweep", K.closest_sweep(*plan, rays, tiles))):
+            share, flips, err = compare_winners(tag, fs, orig, dirn, got, want)
+            errs["closest_small"] = max(errs["closest_small"], err)
+            log(f"{tag}: closest_small vs {other}: tri agrees on {share:.6f} "
+                f"of rays ({flips} near-tie flips)")
+        a_k = K.any_small(rays, tiles)
+        for other, want in (("plain", K._small_sweep(rays, tiles, True)),
+                            ("identity-plan sweep", K.any_sweep(*plan, rays, tiles))):
+            a_share = float((a_k == want).float().mean())
+            if a_share < MIN_AGREE:
+                raise AssertionError(f"{tag}: any_small vs {other} agrees on {a_share:.6f}")
+            errs["any_small"] = max(errs["any_small"], float((a_k - want).abs().max()))
+            log(f"{tag}: any_small vs {other}: agrees on {a_share:.6f} of rays, "
+                f"{float(a_k.float().mean()):.3f} occluded")
+        if timing is not None and name == "camera":
+            time_kernel(timing, "closest_small", tag,
+                        lambda: K.closest_small(rays, tiles),
+                        lambda: K._small_sweep(rays, tiles, False), reps)
+            time_kernel(timing, "any_small", tag,
+                        lambda: K.any_small(rays, tiles),
+                        lambda: K._small_sweep(rays, tiles, True), reps)
+    return errs
+
+
+def lane_diffs(a, b):
+    """Lanes where two [R] or [R, 3] tensors differ in any bit."""
+    import torch
+
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    d = a != b
+    return d.reshape(d.shape[0], -1).any(-1)
+
+
+def first_bounce(fs, static, cfg, n, device):
+    """The main path's first bounce on ``n`` camera rays: the wavefront, its
+    closest hit, material, environment and sun sample, shadow rays traced
+    (kernels throughout)."""
+    import torch
+
+    from ptx_torch.integrator.wavefront import _env_radiance, initial_state
+    from ptx_torch.kernels import intersect_cuda as K
+    from ptx_torch.kernels import shade_cuda as S
+    from ptx_torch.scene import textures
+
+    pix = torch.arange(n, dtype=torch.int32, device=device)
+    state = initial_state(fs, cfg, pix, torch.zeros_like(pix))
+    h = K.closest(fs, state.orig, state.dirn)
+    mat = textures.material_lookup(fs, h.mat_id, h.uv, static)
+    env = _env_radiance(fs, static, cfg, state.dirn)
+    sun, energy = S.sun_constants(fs)
+    sun_args = (cfg.seed, 0, state.pixel_ids, state.sample_ids, state.alive,
+                h.normal, h.position, sun)
+    d_sun, org, exists = S.sun_sample(*sun_args)
+    shadow_hit = K.any_hit(fs, org, d_sun)
+    return state, h, mat, env, (d_sun, exists, shadow_hit), energy, sun_args
+
+
+def check_shade(fs, static, cfg, device, timing, reps):
+    """The sun and shade kernels against their plain versions, bit for bit
+    on >= MIN_AGREE of lanes of every output: the main path's first bounce
+    and seeded random inputs, three quirk sets, with and without a sun."""
+    import torch
+
+    from ptx_torch.kernels import shade_cuda as S
+
+    errs = {"sun": 0.0, "shade": 0.0}
+    state, h, mat, env, sun, energy, sun_args = first_bounce(
+        fs, static, cfg, LAUNCH_RAYS, device)
+    rnd = S.random_inputs(LAUNCH_RAYS, cfg.bounces, seed=11)
+    r_state, r_h, r_mat, r_env, r_sun = S.inputs_from_arrays(rnd, device)
+    r_energy = (6.0, 5.6, 5.0)
+    r_sun_args = (cfg.seed, 2, r_state.pixel_ids, r_state.sample_ids,
+                  r_state.alive, r_h.normal, r_h.position, sun_args[-1])
+
+    def compare(tag, names, got, want, kernel):
+        worst = 1.0
+        counts = []
+        for nm, a, b in zip(names, got, want):
+            n_diff = int(lane_diffs(a, b).sum())
+            counts.append(f"{nm} {n_diff}")
+            worst = min(worst, 1.0 - n_diff / a.shape[0])
+            if a.dtype == torch.float32:
+                both = torch.isfinite(a) & torch.isfinite(b)
+                errs[kernel] = max(errs[kernel],
+                                   float((a[both] - b[both]).abs().max()))
+        log(f"{tag}: differing lanes: {', '.join(counts)}")
+        if worst < MIN_AGREE:
+            raise AssertionError(f"{tag}: {kernel} kernel bit-equal on {worst:.6f}")
+
+    for tag, args in (("first bounce", sun_args), ("random", r_sun_args)):
+        compare(f"sun/{tag}", ("d_sun", "org", "exists"), S.sun_sample(*args),
+                S._sun_sample(*args), "sun")
+    out_names = ("orig", "dirn", "radiance", "throughput", "alpha", "alive",
+                 "bounce")
+    quirk_sets = type(cfg.quirks)
+    for qname, quirks in (("worker", quirk_sets()),
+                          ("monolithic", quirk_sets.monolithic()),
+                          ("physical", quirk_sets.physical())):
+        cq = dataclasses.replace(cfg, quirks=quirks)
+        for tag, it, ins in (("first bounce", 0, (state, h, mat, env, sun, energy)),
+                             ("random", 2, (r_state, r_h, r_mat, r_env, r_sun, r_energy))):
+            for has_sun in (True, False):
+                st, hh, mm, ee, ss, en = ins
+                args = (cq, it, st, hh, mm, ee) + ((ss, en) if has_sun else ())
+                compare(f"shade/{tag}/{qname}/{'sun' if has_sun else 'no sun'}",
+                        out_names, S.shade(*args)[:7], S._shade(*args)[:7], "shade")
+    alive_out = S.shade(cfg, 0, state, h, mat, env, sun, energy).alive
+    log(f"first bounce: {float(state.alive.float().mean()):.3f} alive in, "
+        f"{float(alive_out.float().mean()):.3f} alive out, "
+        f"{float(sun[1].float().mean()):.3f} sun up, "
+        f"{float(sun[2].float().mean()):.3f} shadowed")
+    if timing is not None:
+        tag = f"first bounce, {LAUNCH_RAYS} lanes"
+        time_kernel(timing, "sun", tag, lambda: S.sun_sample(*sun_args),
+                    lambda: S._sun_sample(*sun_args), reps)
+        shade_args = (cfg, 0, state, h, mat, env, sun, energy)
+        time_kernel(timing, "shade", tag, lambda: S.shade(*shade_args),
+                    lambda: S._shade(*shade_args), reps)
+    return errs
+
+
+def profile_sample(sample_fn, fs):
+    """One profiled sample: (device events, device busy ms, wall ms, the
+    device ms and count of the 8 costliest kernel names)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sample_fn(fs, 0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sample_fn(fs, 0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name = {}
+    for e in events:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return len(spans), busy / 1e3, wall * 1e3, top
 
 
 def image_agreement(a, b):
@@ -230,7 +468,6 @@ def main() -> int:
 
     from ptx_torch import render as R
     from ptx_torch.kernels import _build
-    from ptx_torch.kernels import intersect_cuda as K
 
     dev = torch.device("cuda")
 
@@ -249,7 +486,7 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {_build.build_seconds:.1f} s)")
     print(_build.build_log, file=sys.stderr)
 
-    # 3. kernels vs plain versions at the slice's shapes
+    # 3. traversal kernels vs plain versions at the slice's shapes
     cfg = R.RenderConfig(width=256, height=256, samples=4, bounces=4)
     t0 = time.perf_counter()
     fs_np, static_np = R.load_scene(SLICE_SCENE)
@@ -262,22 +499,29 @@ def main() -> int:
         ("scattered", *scattered_rays(static, LAUNCH_RAYS, 7, dev)),
     ], SLICE_SCENE, timing, reps=5)
     fs_s, static_s = R.ensure_accel(*R.load_scene(SMALL_SCENE), cfg, device=dev)
-    check_kernels(fs_s, static_s, [
+    small_rays = [
         ("camera", *camera_rays(fs_s, 256, 256, LAUNCH_RAYS, dev)),
         ("scattered", *scattered_rays(static_s, LAUNCH_RAYS, 8, dev)),
-    ], SMALL_SCENE, None, reps=0)
+    ]
+    check_kernels(fs_s, static_s, small_rays, SMALL_SCENE, None, reps=0)
+    errs.update(check_small(fs_s, small_rays, SMALL_SCENE, timing, reps=5))
 
-    # 4. main path: counts reset just before, read just after
-    K.reset_launches()
+    # 4. sun and shade kernels vs plain versions
+    errs.update(check_shade(fs, static, cfg, dev, timing, reps=5))
+
+    # 5. main path: counts reset just before, read just after
+    if R.resolve_shader(cfg) != "pallas":
+        raise AssertionError("the default shader does not resolve to the kernels")
+    _build.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = R.render(fs_np, static_np, cfg, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
+    launches = dict(_build.LAUNCHES)
     log(f"main path launches: {launches}")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in MAIN_PATH_KERNELS:
+        if launches[name] <= 0:
             raise AssertionError(f"main path never launched the {name} kernel")
     if not np.isfinite(res.color).all():
         raise AssertionError("main path image is not finite")
@@ -287,16 +531,41 @@ def main() -> int:
     log(f"main path: {SLICE_SCENE} 256x256 4spp 4 bounces, render() "
         f"{wall:.2f} s = {paths / wall:,.0f} paths/s incl. BVH and upload "
         f"(mean color {res.color.mean():.4f}; {smi})")
+
+    # Shader A/B on the sample loop, in turns: xla, auto, auto, xla.
     fs_a, static_a = R.ensure_accel(fs_np, static_np, cfg, device=dev)
-    sample_fn = R.make_sample_fn(static_a, cfg, dev)
-    for rep in range(2):
+    images = {}
+    for shader in ("xla", "auto", "auto", "xla"):
+        c = dataclasses.replace(cfg, shader=shader)
+        sample_fn = R.make_sample_fn(static_a, c, dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        R.progressive_render(fs_a, static_a, cfg, sample_fn, None, 1, dev)
+        images[shader] = R.progressive_render(fs_a, static_a, c, sample_fn,
+                                              None, 1, dev)
         torch.cuda.synchronize()
         steady = time.perf_counter() - t0
-        log(f"main path, sample loop only (run {rep + 1}): {steady:.3f} s = "
-            f"{paths / steady:,.0f} paths/s ({smi})")
+        log(f"sample loop, shader {shader} ({R.resolve_shader(c)}): "
+            f"{steady:.3f} s = {paths / steady:,.0f} paths/s ({smi})")
+    for shader in ("xla", "auto"):
+        c = dataclasses.replace(cfg, shader=shader)
+        n_dev, busy, wall_ms, top = profile_sample(
+            R.make_sample_fn(static_a, c, dev), fs_a)
+        if n_dev:
+            log(f"profiled sample, shader {shader}: {n_dev} device kernels, "
+                f"device busy {busy:.1f} of {wall_ms:.1f} ms "
+                f"({100 * busy / wall_ms:.0f} %) ({smi})")
+            for name, (ms, n) in top:
+                log(f"  {ms:9.3f} ms {n:6d}x {name[:90]}")
+        else:
+            log(f"profiled sample, shader {shader}: the profiler saw no device "
+                f"events; kernels per sample not measured")
+    color_share, alpha_share, image_share = image_agreement(images["auto"],
+                                                            images["xla"])
+    log(f"shader auto vs xla, 256x256 4spp: |dcolor|<={COLOR_ATOL} on "
+        f"{color_share:.4f}, alpha equal on {alpha_share:.4f}, uint8 within 1 "
+        f"on {image_share:.4f}")
+    if min(color_share, alpha_share, image_share) < MIN_PIXEL_SHARE:
+        raise AssertionError("the fused shade path disagrees with the plain one")
 
     small = dict(width=64, height=64, samples=2, bounces=4)
     r_k = R.render(fs_np, static_np, R.RenderConfig(intersector="pallas", **small),
@@ -309,7 +578,33 @@ def main() -> int:
     if min(color_share, alpha_share, image_share) < MIN_PIXEL_SHARE:
         raise AssertionError("kernel path image disagrees with the brute path")
 
-    # 5. CLI
+    # 6. small-scene path: synthetic:2000 (no sun of its own) lit by the
+    # arch scene's sun, so its shadow rays take the small any sweep.
+    fs_sn, static_sn = R.load_scene(SMALL_SCENE)
+    fs_sn = fs_sn._replace(sun_dir=fs_np.sun_dir, sun_energy=fs_np.sun_energy,
+                           sun_angular_radius=fs_np.sun_angular_radius)
+    static_sn = dataclasses.replace(static_sn, has_sun=True)
+    _build.reset_launches()
+    r_k = R.render(fs_sn, static_sn, R.RenderConfig(intersector="pallas", **small),
+                   device=dev)
+    torch.cuda.synchronize()
+    small_launches = dict(_build.LAUNCHES)
+    log(f"small-scene path launches: {small_launches}")
+    for name in SMALL_PATH_KERNELS:
+        if small_launches[name] <= 0:
+            raise AssertionError(f"small-scene path never launched the {name} kernel")
+    r_b = R.render(fs_sn, static_sn, R.RenderConfig(intersector="brute", **small),
+                   device=dev)
+    color_share, alpha_share, image_share = image_agreement(r_k, r_b)
+    log(f"{SMALL_SCENE} + sun 64x64 2spp kernels vs brute: |dcolor|<={COLOR_ATOL} "
+        f"on {color_share:.4f}, alpha equal on {alpha_share:.4f}, uint8 within 1 "
+        f"on {image_share:.4f}")
+    if min(color_share, alpha_share, image_share) < MIN_PIXEL_SHARE:
+        raise AssertionError("small-scene kernel path disagrees with the brute path")
+    if not np.isfinite(r_k.color).all() or r_k.image[..., :3].max() == 0:
+        raise AssertionError("small-scene image is black or not finite")
+
+    # 7. CLI
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "ptx_torch_smoke.png")
         subprocess.run(
@@ -327,8 +622,9 @@ def main() -> int:
     record = []
     for name, (source, replaces) in REPLACES.items():
         ms, plain = timing[name]
+        n = (small_launches if name.endswith("_small") else launches)[name]
         record.append(dict(name=name, route="cuda", source=source,
-                           replaces=replaces, launches=launches[name],
+                           replaces=replaces, launches=n,
                            max_abs_err=errs[name], ms=ms, plain_ms=plain))
     log(smi)
     log(json.dumps({"kernels": record}))

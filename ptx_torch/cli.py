@@ -11,6 +11,12 @@ import argparse
 import sys
 import time
 
+SHADERS = {
+    "pallas": "the fused sun and shade kernels; their plain torch versions "
+              "on the CPU",
+    "xla": "the plain torch shade stage",
+}
+
 
 def _add_render_args(p: argparse.ArgumentParser):
     p.add_argument("--scene", required=True,
@@ -81,11 +87,10 @@ def cmd_render(args) -> int:
     fs, static = R.load_scene(args.scene, quirks=cfg.quirks)
     print(f"loaded {static.n_tris} triangles, {static.n_materials} materials "
           f"in {time.time() - t0:.2f}s (sun={static.has_sun})", file=sys.stderr)
+    shader = R.resolve_shader(cfg)
     print(f"device {device}: intersector "
-          f"{R.resolve_intersector(static, cfg, device)}, shader "
-          f"{R.resolve_shader(cfg)} (shader=auto resolves to the plain torch "
-          f"shade stage until the fused shade kernel is ported)",
-          file=sys.stderr)
+          f"{R.resolve_intersector(static, cfg, device)}, shader {shader} "
+          f"({SHADERS[shader]})", file=sys.stderr)
 
     def progress(done, total):
         print(f"\rsample {done}/{total}", end="", file=sys.stderr)

@@ -354,16 +354,55 @@ def make_shade_fn(static: SceneStatic, cfg: RenderConfig):
     return shade
 
 
+def initial_state(fs: FlatScene, cfg: RenderConfig, pixel_ids, sample_ids
+                  ) -> RayState:
+    """The wavefront of camera rays for ``pixel_ids`` / ``sample_ids``."""
+    q = cfg.quirks
+    orig, dirn = pcamera.generate_rays(
+        fs, pixel_ids, sample_ids, cfg.width, cfg.height, cfg.seed,
+        q.first_sample_centered, cfg.transparent_background,
+    )
+    r = pixel_ids.shape[0]
+    dev = pixel_ids.device
+    return RayState(
+        orig=orig.contiguous(),
+        dirn=dirn,
+        radiance=torch.zeros((r, 3), device=dev),
+        throughput=torch.ones((r, 3), device=dev),
+        alpha=torch.zeros((r,), device=dev),
+        alive=torch.ones((r,), dtype=torch.bool, device=dev),
+        bounce=torch.full((r,), cfg.bounces, dtype=torch.int32, device=dev),
+        pixel_ids=pixel_ids.to(torch.int32),
+        sample_ids=sample_ids.to(torch.int32),
+    )
+
+
+def max_iterations(static: SceneStatic, cfg: RenderConfig) -> int:
+    """Bounce iterations of a launch.  Opacity passthrough does not consume
+    a bounce: headroom only when some material can pass rays through."""
+    extra = cfg.opacity_extra_iters if static.has_translucent else 0
+    return cfg.bounces + extra
+
+
+def run_forward(step: Callable, fs: FlatScene, state: RayState,
+                max_iters: int, static: SceneStatic, do_compact: bool):
+    """Step the wavefront until no lane is alive or ``max_iters``, with
+    survivor compaction when ``do_compact``; returns (radiance, alpha)."""
+    if do_compact:
+        return _chunked_forward(step, fs, state, max_iters, static)
+    it = 0
+    while it < max_iters and bool(state.alive.any()):
+        state = step(fs, it, state)
+        it += 1
+    return state.radiance, state.alpha
+
+
 def make_integrator(static: SceneStatic, cfg: RenderConfig, closest: Callable,
                     any_hit: Callable):
     """The forward integrator ``(fs, pixel_ids, sample_ids) -> (radiance
     [R, 3], alpha [R])``.  ``closest(fs, orig, dirn) -> Hit`` and
     ``any_hit(fs, orig, dirn) -> [R] bool`` are the intersection backend."""
-    q = cfg.quirks
-    # Opacity passthrough does not consume a bounce: headroom only when some
-    # material can pass rays through.
-    extra = cfg.opacity_extra_iters if static.has_translucent else 0
-    max_iters = cfg.bounces + extra
+    max_iters = max_iterations(static, cfg)
     do_compact = sorting.resolve_compact(static, cfg)
     trace = make_trace_fn(static, cfg, closest, any_hit, do_compact)
     shade = make_shade_fn(static, cfg)
@@ -372,29 +411,7 @@ def make_integrator(static: SceneStatic, cfg: RenderConfig, closest: Callable,
         return shade(fs, it, state, *trace(fs, it, state))
 
     def integrate(fs: FlatScene, pixel_ids, sample_ids):
-        orig, dirn = pcamera.generate_rays(
-            fs, pixel_ids, sample_ids, cfg.width, cfg.height, cfg.seed,
-            q.first_sample_centered, cfg.transparent_background,
-        )
-        r = pixel_ids.shape[0]
-        dev = pixel_ids.device
-        state = RayState(
-            orig=orig.contiguous(),
-            dirn=dirn,
-            radiance=torch.zeros((r, 3), device=dev),
-            throughput=torch.ones((r, 3), device=dev),
-            alpha=torch.zeros((r,), device=dev),
-            alive=torch.ones((r,), dtype=torch.bool, device=dev),
-            bounce=torch.full((r,), cfg.bounces, dtype=torch.int32, device=dev),
-            pixel_ids=pixel_ids.to(torch.int32),
-            sample_ids=sample_ids.to(torch.int32),
-        )
-        if do_compact:
-            return _chunked_forward(step, fs, state, max_iters, static)
-        it = 0
-        while it < max_iters and bool(state.alive.any()):
-            state = step(fs, it, state)
-            it += 1
-        return state.radiance, state.alpha
+        state = initial_state(fs, cfg, pixel_ids, sample_ids)
+        return run_forward(step, fs, state, max_iters, static, do_compact)
 
     return integrate

@@ -1,11 +1,16 @@
-"""Build and load the port's CUDA kernels.
+"""Build, load and launch the port's CUDA kernels.
 
-On first use, ``nvcc`` compiles every ``ptx_torch/csrc/*.cu`` into one
-shared library with a plain C interface (``ptx_torch/build/``, git-ignored),
-named by a hash of the sources and flags so an edit rebuilds it; the
-library is bound with ``ctypes``.  ``-fmad=false`` keeps nvcc from fusing
-``a * b + c`` into an FMA, so the kernels round exactly like their plain
-torch versions.
+On first use, ``nvcc`` compiles each ``ptx_torch/csrc/*.cu`` to an object,
+all sources at once in parallel, and links them into one shared library
+with a plain C interface (``ptx_torch/build/``, git-ignored), named by a
+hash of the sources and flags so an edit rebuilds it; the library is bound
+with ``ctypes``.  ``-fmad=false`` keeps nvcc from fusing ``a * b + c`` into
+an FMA, so the kernels round exactly like their plain torch versions.
+
+The wrappers share the rest: a wrapper runs its plain version only when
+every tensor lies on the CPU (:func:`on_cpu`), checks what it hands a kernel
+(:func:`check`), launches on torch's current stream and raises on a launch
+error (:func:`launch`), and counts each launch in ``LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -16,17 +21,19 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
+
+import torch
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -35,6 +42,16 @@ _SIGNATURES = {
     "ptx_exact_gate": [_P, _P, _I, _I, _P, _P, _P],
     "ptx_closest": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
     "ptx_any": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
+    "ptx_closest_small": [_P, _P, _I, _I, _P, _P, _P],
+    "ptx_any_small": [_P, _P, _I, _I, _P, _P],
+    "ptx_sun": [_P, _P],
+    "ptx_shade": [_P, _I, _P],
+}
+
+# Kernel launches per wrapper since the last reset_launches().
+LAUNCHES = {
+    "exact_gate": 0, "closest": 0, "any": 0, "closest_small": 0,
+    "any_small": 0, "sun": 0, "shade": 0,
 }
 
 _lock = threading.Lock()
@@ -43,6 +60,42 @@ _lib = None
 # and its wall time in seconds; empty / 0.0 when the library was cached.
 build_log = ""
 build_seconds = 0.0
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def on_cpu(*tensors) -> bool:
+    """True when every tensor lies on the CPU; False when all are on one
+    CUDA device; raises on anything else."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    return False
+
+
+def check(t, name, dtype, shape):
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def launch(fn, *args):
+    """Call a C entry point with torch's current stream; raise on a CUDA
+    error (a refused launch never runs, and a synchronize would not say)."""
+    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {rc}")
 
 
 def _nvcc() -> str:
@@ -58,14 +111,51 @@ def _nvcc() -> str:
     return path
 
 
+def _sources():
+    return sorted(glob.glob(os.path.join(SRC_DIR, "*.cu")))
+
+
 def library_path() -> str:
-    sources = sorted(glob.glob(os.path.join(SRC_DIR, "*.cu")))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sources:
+    for s in _sources():
         h.update(os.path.basename(s).encode())
         with open(s, "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"libptx_torch_{h.hexdigest()[:16]}.so")
+
+
+def _build(path: str) -> str:
+    """One nvcc per source, all started together, then one link.  Returns
+    the compilers' output."""
+    nvcc = _nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for src in _sources():
+            obj = os.path.join(tmp, os.path.basename(src) + ".o")
+            procs.append((obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )))
+        log = []
+        for obj, proc in procs:
+            out, _ = proc.communicate()
+            log.append(out)
+            if proc.returncode != 0:
+                for _, other in procs:
+                    other.kill()
+                raise RuntimeError("nvcc failed:\n" + "".join(log))
+        lib_tmp = os.path.join(tmp, "lib.so")
+        proc = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", lib_tmp,
+             *(obj for obj, _ in procs)],
+            capture_output=True, text=True,
+        )
+        log.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + "".join(log))
+        os.replace(lib_tmp, path)
+    return "".join(log)
 
 
 def load() -> ctypes.CDLL:
@@ -76,19 +166,9 @@ def load() -> ctypes.CDLL:
             return _lib
         path = library_path()
         if not os.path.exists(path):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{path}.{os.getpid()}.tmp"
-            sources = sorted(glob.glob(os.path.join(SRC_DIR, "*.cu")))
             t0 = time.perf_counter()
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
-                capture_output=True, text=True,
-            )
+            build_log = _build(path)
             build_seconds = time.perf_counter() - t0
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed:\n{build_log}")
-            os.replace(tmp, path)
         lib = ctypes.CDLL(path)
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)

@@ -1,5 +1,5 @@
-"""The planned tile traversal: three hand-written CUDA kernels and their
-plain torch versions (port of the kernels and wrappers of
+"""The tile traversal: five hand-written CUDA kernels and their plain torch
+versions (port of the kernels and wrappers of
 ``ptx/kernels/intersect_pallas.py``).
 
 * :func:`exact_gate` - ``csrc/exact_gate.cu``, plain version
@@ -7,13 +7,16 @@ plain torch versions (port of the kernels and wrappers of
 * :func:`closest_sweep` / :func:`any_sweep` - ``csrc/tile_sweep.cu``, plain
   version :func:`_sweep`: each block's planned tiles front to back, the
   Baldwin-Weber test and the packed-min key.
+* :func:`closest_small` / :func:`any_small` - ``csrc/tile_sweep.cu``, plain
+  version :func:`_small_sweep`: scenes of at most SMALL_TILES tiles, every
+  block against every tile in tile order, no plan.
 
 A wrapper runs the plain version only for tensors on the CPU; for CUDA
-tensors it launches its kernel (and counts the launch in ``LAUNCHES``) or
-raises.  :func:`closest` / :func:`any_hit` wrap a sweep with the plan and,
-for the closest hit, the exact epilogue: one ``tri_attrs`` row gather, the
-Moller-Trumbore recompute of the winner, and
-``hit = (t_trunc < HIT_T) & (t_exact < INF)``.
+tensors it launches its kernel (and counts the launch in
+``_build.LAUNCHES``) or raises.  :func:`closest` / :func:`any_hit` pick the
+small sweep or the planned one and, for the closest hit, run the exact
+epilogue: one ``tri_attrs`` row gather, the Moller-Trumbore recompute of
+the winner, and ``hit = (t_trunc < HIT_T) & (t_exact < INF)``.
 """
 
 from __future__ import annotations
@@ -40,47 +43,10 @@ from ptx_torch.kernels.tiles import (
 )
 from ptx.scene.flatten import FlatScene
 
-# Kernel launches per wrapper since the last reset_launches().
-LAUNCHES = {"exact_gate": 0, "closest": 0, "any": 0}
-
 # float32(-EPS) and float32(1 + EPS), held as python floats that float32
 # represents exactly, so a comparison gives the same answer in any precision.
 _NEG_EPS = float(np.float32(-1.0e-4))
 _ONE_EPS = float(np.float32(1.0 + 1.0e-4))
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def _on_cpu(*tensors) -> bool:
-    """True when every tensor lies on the CPU; False when all are on one
-    CUDA device; raises on anything else."""
-    devs = {t.device for t in tensors}
-    if len(devs) != 1:
-        raise ValueError(f"tensors on several devices: {sorted(map(str, devs))}")
-    dev = devs.pop()
-    if dev.type == "cpu":
-        return True
-    if dev.type != "cuda":
-        raise ValueError(f"no kernel for device {dev}")
-    return False
-
-
-def _check(t, name, dtype, shape):
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
-
-
-def _launch(fn, *args):
-    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {rc}")
 
 
 # --------------------------------------------------------------------------
@@ -122,19 +88,20 @@ def _exact_gate(rays, boxes, max_elems: int = 1 << 22):
 def exact_gate(rays, boxes):
     """Per-[128-ray block x tile] (gated, least entry distance): the kernel
     for CUDA tensors, :func:`_exact_gate` for CPU tensors."""
-    if _on_cpu(rays, boxes):
+    if _build.on_cpu(rays, boxes):
         return _exact_gate(rays, boxes)
     nb, n_tiles = rays.shape[0] // RB, boxes.shape[0]
-    _check(rays, "rays", torch.float32, (nb * RB, 8))
-    _check(boxes, "boxes", torch.float32, (n_tiles, 8))
+    _build.check(rays, "rays", torch.float32, (nb * RB, 8))
+    _build.check(boxes, "boxes", torch.float32, (n_tiles, 8))
     if nb >= 65536:
         raise ValueError(f"{rays.shape[0]} rays: at most 65535 blocks per launch")
     gated = torch.empty((nb, n_tiles), dtype=torch.bool, device=rays.device)
     near = torch.empty((nb, n_tiles), dtype=torch.float32, device=rays.device)
     if nb and n_tiles:
-        _launch(_build.load().ptx_exact_gate, rays.data_ptr(), boxes.data_ptr(),
-                nb, n_tiles, gated.data_ptr(), near.data_ptr())
-        LAUNCHES["exact_gate"] += 1
+        _build.launch(_build.load().ptx_exact_gate, rays.data_ptr(),
+                      boxes.data_ptr(), nb, n_tiles, gated.data_ptr(),
+                      near.data_ptr())
+        _build.LAUNCHES["exact_gate"] += 1
     return gated, near
 
 
@@ -150,6 +117,10 @@ def _plan_tiles(rays, boxes):
 
 
 def _plan(rays, boxes):
+    """The general sweep's plan for any scene: the identity plan (every
+    block, every tile) up to SMALL_TILES tiles.  The traversal itself sends
+    such scenes to the small sweep; this plan is what that sweep is checked
+    against."""
     nb, n_tiles = rays.shape[0] // RB, boxes.shape[0]
     if n_tiles <= SMALL_TILES:
         return identity_plan(nb, n_tiles, rays.device)
@@ -230,11 +201,11 @@ def _sweep(order, count, near, rays, tiles, any_mode: bool):
 
 def _check_sweep_args(order, count, near, rays, tiles):
     nb, n_tiles = rays.shape[0] // RB, tiles.shape[0]
-    _check(order, "order", torch.int32, (nb, n_tiles))
-    _check(count, "count", torch.int32, (nb,))
-    _check(near, "near", torch.float32, (nb, n_tiles + 1))
-    _check(rays, "rays", torch.float32, (nb * RB, 8))
-    _check(tiles, "tiles", torch.float32, (n_tiles, 16, TT))
+    _build.check(order, "order", torch.int32, (nb, n_tiles))
+    _build.check(count, "count", torch.int32, (nb,))
+    _build.check(near, "near", torch.float32, (nb, n_tiles + 1))
+    _build.check(rays, "rays", torch.float32, (nb * RB, 8))
+    _build.check(tiles, "tiles", torch.float32, (n_tiles, 16, TT))
     if tiles.data_ptr() % 16:
         raise ValueError("tiles: not 16-byte aligned")
     return nb, n_tiles
@@ -242,30 +213,102 @@ def _check_sweep_args(order, count, near, rays, tiles):
 
 def closest_sweep(order, count, near, rays, tiles):
     """Closest planned-tile sweep: ``(t_trunc [R_pad], tri [R_pad])``."""
-    if _on_cpu(order, count, near, rays, tiles):
+    if _build.on_cpu(order, count, near, rays, tiles):
         return _sweep(order, count, near, rays, tiles, any_mode=False)
     nb, n_tiles = _check_sweep_args(order, count, near, rays, tiles)
     t = torch.empty((nb * RB,), dtype=torch.float32, device=rays.device)
     tri = torch.empty((nb * RB,), dtype=torch.int32, device=rays.device)
     if nb:
-        _launch(_build.load().ptx_closest, order.data_ptr(), count.data_ptr(),
-                near.data_ptr(), rays.data_ptr(), tiles.data_ptr(), nb,
-                n_tiles, t.data_ptr(), tri.data_ptr())
-        LAUNCHES["closest"] += 1
+        _build.launch(_build.load().ptx_closest, order.data_ptr(),
+                      count.data_ptr(), near.data_ptr(), rays.data_ptr(),
+                      tiles.data_ptr(), nb, n_tiles, t.data_ptr(),
+                      tri.data_ptr())
+        _build.LAUNCHES["closest"] += 1
     return t, tri
 
 
 def any_sweep(order, count, near, rays, tiles):
     """Any-hit planned-tile sweep: ``hit [R_pad]`` int32 (0/1)."""
-    if _on_cpu(order, count, near, rays, tiles):
+    if _build.on_cpu(order, count, near, rays, tiles):
         return _sweep(order, count, near, rays, tiles, any_mode=True)
     nb, n_tiles = _check_sweep_args(order, count, near, rays, tiles)
     hit = torch.empty((nb * RB,), dtype=torch.int32, device=rays.device)
     if nb:
-        _launch(_build.load().ptx_any, order.data_ptr(), count.data_ptr(),
-                near.data_ptr(), rays.data_ptr(), tiles.data_ptr(), nb,
-                n_tiles, hit.data_ptr())
-        LAUNCHES["any"] += 1
+        _build.launch(_build.load().ptx_any, order.data_ptr(),
+                      count.data_ptr(), near.data_ptr(), rays.data_ptr(),
+                      tiles.data_ptr(), nb, n_tiles, hit.data_ptr())
+        _build.LAUNCHES["any"] += 1
+    return hit
+
+
+def _small_sweep(rays, tiles, any_mode: bool):
+    """Plain version of the small sweeps of ``csrc/tile_sweep.cu`` (the JAX
+    package's ``_closest_small_kernel`` / ``_any_small_kernel``): every
+    block against every tile, in tile order; a key replaces the best only
+    when strictly smaller, so an equal key keeps the earlier tile.  Returns
+    ``(t_trunc [R_pad] f32, tri [R_pad] i32)`` or, with ``any_mode``,
+    ``hit [R_pad] i32``."""
+    dev = rays.device
+    nb = rays.shape[0] // RB
+    r = rays.view(nb, RB, 8)
+    lane = torch.arange(TT, dtype=torch.int32, device=dev)
+    best_key = torch.full((nb, RB), INIT_KEY, dtype=torch.int32, device=dev)
+    best_tile = torch.zeros((nb, RB), dtype=torch.int32, device=dev)
+    hit = torch.zeros((nb, RB), dtype=torch.bool, device=dev)
+    for tile in range(tiles.shape[0]):
+        t = _test_matrix(r, tiles[tile:tile + 1, 0:12])
+        if any_mode:
+            hit |= (t < INF).any(-1)
+            continue
+        kmin = ((t.view(torch.int32) & ~LANE_BITS) | lane).amin(-1)
+        closer = kmin < best_key
+        best_key = torch.where(closer, kmin, best_key)
+        best_tile = torch.where(closer, tile, best_tile)
+    if any_mode:
+        return hit.view(-1).to(torch.int32)
+    t = (best_key & ~LANE_BITS).view(torch.float32)
+    tri = best_tile * TT + (best_key & LANE_BITS)
+    return t.view(-1), tri.view(-1)
+
+
+def _check_small_args(rays, tiles):
+    nb, n_tiles = rays.shape[0] // RB, tiles.shape[0]
+    if not 0 < n_tiles <= SMALL_TILES:
+        raise ValueError(f"{n_tiles} tiles: the small sweep takes 1..{SMALL_TILES}")
+    _build.check(rays, "rays", torch.float32, (nb * RB, 8))
+    _build.check(tiles, "tiles", torch.float32, (n_tiles, 16, TT))
+    if tiles.data_ptr() % 16:
+        raise ValueError("tiles: not 16-byte aligned")
+    return nb, n_tiles
+
+
+def closest_small(rays, tiles):
+    """Closest sweep of a scene of at most SMALL_TILES tiles:
+    ``(t_trunc [R_pad], tri [R_pad])``."""
+    if _build.on_cpu(rays, tiles):
+        return _small_sweep(rays, tiles, any_mode=False)
+    nb, n_tiles = _check_small_args(rays, tiles)
+    t = torch.empty((nb * RB,), dtype=torch.float32, device=rays.device)
+    tri = torch.empty((nb * RB,), dtype=torch.int32, device=rays.device)
+    if nb:
+        _build.launch(_build.load().ptx_closest_small, rays.data_ptr(),
+                      tiles.data_ptr(), nb, n_tiles, t.data_ptr(),
+                      tri.data_ptr())
+        _build.LAUNCHES["closest_small"] += 1
+    return t, tri
+
+
+def any_small(rays, tiles):
+    """Any-hit sweep of a scene of at most SMALL_TILES tiles: ``hit [R_pad]``
+    int32 (0/1)."""
+    if _build.on_cpu(rays, tiles):
+        return _small_sweep(rays, tiles, any_mode=True)
+    nb, n_tiles = _check_small_args(rays, tiles)
+    hit = torch.empty((nb * RB,), dtype=torch.int32, device=rays.device)
+    if nb:
+        _build.launch(_build.load().ptx_any_small, rays.data_ptr(),
+                      tiles.data_ptr(), nb, n_tiles, hit.data_ptr())
+        _build.LAUNCHES["any_small"] += 1
     return hit
 
 
@@ -289,7 +332,10 @@ def closest(fs: FlatScene, orig, dirn) -> Hit:
     r = orig.shape[0]
     rays, _ = _pack_rays(orig, dirn)
     tiles, boxes = _scene_tiles(fs)
-    t_trunc, tri = closest_sweep(*_plan(rays, boxes), rays, tiles)
+    if tiles.shape[0] <= SMALL_TILES:
+        t_trunc, tri = closest_small(rays, tiles)
+    else:
+        t_trunc, tri = closest_sweep(*_plan_tiles(rays, boxes), rays, tiles)
     t_trunc, tri = t_trunc[:r], tri[:r]
     n = fs.tri_a.shape[0]
     # Out-of-range winners (no-hit lanes of a padded last tile) are clamped
@@ -311,7 +357,11 @@ def any_hit(fs: FlatScene, orig, dirn):
     r = orig.shape[0]
     rays, _ = _pack_rays(orig, dirn)
     tiles, boxes = _scene_tiles(fs)
-    return any_sweep(*_plan(rays, boxes), rays, tiles)[:r] > 0
+    if tiles.shape[0] <= SMALL_TILES:
+        hit = any_small(rays, tiles)
+    else:
+        hit = any_sweep(*_plan_tiles(rays, boxes), rays, tiles)
+    return hit[:r] > 0
 
 
 def make_backend():

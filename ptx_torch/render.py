@@ -9,8 +9,10 @@ drives both packages:
   on a CUDA device, their plain versions on the CPU); "auto" picks it on
   CUDA and follows the JAX package's CPU rule otherwise; "brute" is the
   plain brute-force sweep; "bvh" is not ported yet.
-* ``shader``: "xla" is the plain torch shade stage; "auto" resolves to it
-  until the fused shade kernel is ported; "pallas" is refused.
+* ``shader``: "pallas" is the fused shade schedule (the CUDA sun and shade
+  kernels on a CUDA device, their plain versions on the CPU); "xla" is the
+  plain torch shade stage; "auto" follows the JAX package: "pallas" when a
+  launch is a multiple of 128 rays, "xla" otherwise.
 """
 
 from __future__ import annotations
@@ -35,7 +37,6 @@ MAX_RAYS_PER_LAUNCH = 1 << 15
 # What the port refuses, and the ROADMAP item that will bring it.
 NOT_PORTED = {
     "bvh": "the BVH traversal backend is not ported yet (ROADMAP Queue A item 9)",
-    "shader": "the fused shade kernel is not ported yet (ROADMAP Queue A item 4)",
     "checkpoint": "checkpoint/preview is not ported yet (ROADMAP Queue A item 7)",
     "env": "environment maps are not ported yet (ROADMAP Queue A item 11)",
     "visualize": "debug visualizations are not ported yet (ROADMAP Queue A item 11)",
@@ -89,12 +90,16 @@ def resolve_intersector(static: SceneStatic, cfg: RenderConfig, device) -> str:
 
 
 def resolve_shader(cfg: RenderConfig) -> str:
-    """"xla" (the plain torch shade stage) for "auto" and "xla"."""
-    if cfg.shader == "pallas":
-        raise NotImplementedError(NOT_PORTED["shader"])
-    if cfg.shader not in ("auto", "xla"):
+    """The JAX package's rule (``ptx/render.py::resolve_shader``): "auto"
+    is "pallas" when the per-launch ray count (the pixel chunk, else the
+    frame) is a multiple of 128, else "xla"; "xla" and "pallas" are taken as
+    given."""
+    if cfg.shader == "auto":
+        launch = resolve_rays_per_batch(cfg) or cfg.width * cfg.height
+        return "pallas" if launch % 128 == 0 else "xla"
+    if cfg.shader not in ("xla", "pallas"):
         raise ValueError(f"unknown shader {cfg.shader!r}")
-    return "xla"
+    return cfg.shader
 
 
 def ensure_accel(fs: FlatScene, static: SceneStatic, cfg: RenderConfig,
@@ -129,7 +134,10 @@ def get_backend(static: SceneStatic, cfg: RenderConfig, device):
 
 def make_integrator_for(static: SceneStatic, cfg: RenderConfig, device):
     closest, any_hit = get_backend(static, cfg, device)
-    resolve_shader(cfg)
+    if resolve_shader(cfg) == "pallas":
+        from ptx_torch.kernels.shade_cuda import make_pallas_integrator
+
+        return make_pallas_integrator(static, cfg, closest, any_hit)
     return make_integrator(static, cfg, closest, any_hit)
 
 

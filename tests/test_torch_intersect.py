@@ -1,7 +1,8 @@
 """The port's closest and any hit held against the JAX package's Pallas
 traversal (``closest_pallas`` / ``any_pallas``, interpret mode) on the same
 rays: ``arch:2000`` takes the planned path (10 tiles), ``synthetic:2000`` the
-small path (4 tiles, served by the identity plan in the port).
+small path (4 tiles: ``_closest_small_kernel`` / ``_any_small_kernel``, and
+the port's small sweep).
 
 Tolerances: the JAX kernel in interpret mode takes its reciprocal in
 bfloat16 and refines it with one Newton step, where the port divides
@@ -24,7 +25,7 @@ from ptx.kernels import intersect as jintersect
 from ptx.kernels import intersect_pallas as kp
 from ptx.scene.arch import load_arch
 from ptx.scene.synthetic import load_synthetic
-from ptx_torch.kernels import intersect, intersect_cuda, sorting, tiles
+from ptx_torch.kernels import _build, intersect, intersect_cuda, sorting, tiles
 from ptx_torch.scene.bridge import to_device
 from ptx_torch.scene.camera import generate_rays
 
@@ -84,10 +85,13 @@ def test_closest_matches_pallas(spec, kind):
     orig, dirn = _rays(fs_t, static, kind)
     r = orig.shape[0]
 
-    # Kernel level: the swept winner.
+    # Kernel level: the swept winner of the sweep the traversal runs.
     rays, _ = tiles._pack_rays(orig, dirn)
-    plan = intersect_cuda._plan(rays, fs_t.pboxes)
-    t_trunc, tri = intersect_cuda.closest_sweep(*plan, rays, fs_t.ptiles)
+    if fs_t.ptiles.shape[0] <= tiles.SMALL_TILES:
+        t_trunc, tri = intersect_cuda.closest_small(rays, fs_t.ptiles)
+    else:
+        plan = intersect_cuda._plan(rays, fs_t.pboxes)
+        t_trunc, tri = intersect_cuda.closest_sweep(*plan, rays, fs_t.ptiles)
     ref_t, ref_tri = (np.asarray(x)[:, 0] for x in _jax_sweep(
         jnp.asarray(rays.numpy()), jfs.ptiles, jfs.pboxes, False))
     hit = t_trunc.numpy() < tiles.HIT_T
@@ -125,15 +129,65 @@ def test_sweep_wrappers_run_plain_on_cpu():
     fs, _, fs_t, static = _scene("arch:2000")
     rays, _ = tiles._pack_rays(*_rays(fs_t, static, "scattered"))
     plan = intersect_cuda._plan_tiles(rays, fs_t.pboxes)
-    intersect_cuda.reset_launches()
+    _build.reset_launches()
     t, tri = intersect_cuda.closest_sweep(*plan, rays, fs_t.ptiles)
     hit = intersect_cuda.any_sweep(*plan, rays, fs_t.ptiles)
-    assert intersect_cuda.LAUNCHES == {"exact_gate": 0, "closest": 0, "any": 0}
+    assert set(_build.LAUNCHES.values()) == {0}
     t_p, tri_p = intersect_cuda._sweep(*plan, rays, fs_t.ptiles, any_mode=False)
     assert torch.equal(t, t_p) and torch.equal(tri, tri_p)
     assert torch.equal(hit, intersect_cuda._sweep(*plan, rays, fs_t.ptiles, True))
     # Every ray with a closest hit is occluded, and no other.
     assert torch.equal(hit > 0, t < tiles.HIT_T)
+
+
+_jax_small = jax.jit(functools.partial(kp._small_call, interpret=True),
+                     static_argnums=(0, 3))
+
+
+@pytest.mark.parametrize("kind", ["camera", "scattered"])
+def test_small_sweep_matches_pallas(kind):
+    """``_small_sweep`` against ``_closest_small_kernel`` /
+    ``_any_small_kernel`` on a 4-tile scene, and against the general sweep
+    on the identity plan, which must pick the same winners."""
+    fs, jfs, fs_t, static = _scene("synthetic:2000")
+    assert fs_t.ptiles.shape[0] <= tiles.SMALL_TILES
+    rays, r_pad = tiles._pack_rays(*_rays(fs_t, static, kind))
+    jr = jnp.asarray(rays.numpy())
+    t, tri = intersect_cuda._small_sweep(rays, fs_t.ptiles, any_mode=False)
+    hit = intersect_cuda._small_sweep(rays, fs_t.ptiles, any_mode=True)
+    ref_t, ref_tri = (np.asarray(x)[:, 0] for x in _jax_small(
+        kp._closest_small_kernel, jr, jfs.ptiles,
+        (jax.ShapeDtypeStruct((r_pad, 1), jnp.float32),
+         jax.ShapeDtypeStruct((r_pad, 1), jnp.int32))))
+    ref_hit = np.asarray(_jax_small(
+        kp._any_small_kernel, jr, jfs.ptiles,
+        (jax.ShapeDtypeStruct((r_pad, 1), jnp.int32),)))[:, 0]
+    is_hit = t.numpy() < tiles.HIT_T
+    assert 0.05 < is_hit.mean()
+    np.testing.assert_array_equal(is_hit, ref_t < tiles.HIT_T)
+    same = (tri.numpy() == ref_tri) | ~is_hit
+    assert (~same).mean() <= MAX_FLIP_SHARE
+    np.testing.assert_array_equal(hit.numpy(), ref_hit)
+    np.testing.assert_array_equal(hit.numpy() > 0, is_hit)
+
+    plan = tiles.identity_plan(r_pad // tiles.RB, fs_t.ptiles.shape[0], "cpu")
+    t_g, tri_g = intersect_cuda._sweep(*plan, rays, fs_t.ptiles, any_mode=False)
+    assert torch.equal(t, t_g) and torch.equal(tri, tri_g)
+    assert torch.equal(hit, intersect_cuda._sweep(*plan, rays, fs_t.ptiles, True))
+
+
+def test_small_wrappers_run_plain_on_cpu():
+    fs, _, fs_t, static = _scene("synthetic:2000")
+    rays, _ = tiles._pack_rays(*_rays(fs_t, static, "scattered"))
+    _build.reset_launches()
+    t, tri = intersect_cuda.closest_small(rays, fs_t.ptiles)
+    hit = intersect_cuda.any_small(rays, fs_t.ptiles)
+    assert set(_build.LAUNCHES.values()) == {0}
+    t_p, tri_p = intersect_cuda._small_sweep(rays, fs_t.ptiles, any_mode=False)
+    assert torch.equal(t, t_p) and torch.equal(tri, tri_p)
+    assert torch.equal(hit, intersect_cuda._small_sweep(rays, fs_t.ptiles, True))
+    with pytest.raises(ValueError, match="small sweep"):
+        intersect_cuda._check_small_args(rays, torch.zeros((5, 16, tiles.TT)))
 
 
 def test_closest_needs_tiles():
