@@ -24,7 +24,18 @@ Phases (any failure raises, and the exit code is then non-zero):
    through the kernels against the plain brute-force intersector;
 6. the small-scene path: ``synthetic:2000`` lit by the arch scene's sun at
    64x64, 2 spp, through the small sweeps, against the brute path;
-7. the CLI writes a PNG.
+7. the CLI writes a PNG;
+8. the stats sweep (``ptx_closest_stats``) against its plain version, bit
+   for bit on all three outputs, and its t and tri against
+   ``ptx_closest``'s, with ``visited <= count`` on every block: the bench
+   roofline's 131,072 camera rays on ``synthetic:262144`` and
+   ``arch:262144`` and the 32,768 scattered rays on ``arch:300000``;
+9. the bench path: ``ptx_torch.bench.run_bench`` with the headline, the two
+   tile-traversal rooflines and the brute roofline, its JSON on a line of
+   its own, with every kernel's launch count.
+Every kernel's bound (the least time the card could take for the work of
+the timed launch: its operations at the float32 peak or its bytes at the
+HBM rate, whichever is larger) is computed from that launch's inputs.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -64,21 +75,38 @@ REPLACES = {
                   "ptx/kernels/intersect_pallas.py:678"),
     "sun": ("ptx_torch/csrc/shade.cu", "ptx/kernels/shade_pallas.py:172"),
     "shade": ("ptx_torch/csrc/shade.cu", "ptx/kernels/shade_pallas.py:239"),
+    "closest_stats": ("ptx_torch/csrc/tile_sweep.cu",
+                      "ptx/kernels/intersect_pallas.py:592"),
 }
 # The kernels each path must launch.
 MAIN_PATH_KERNELS = ("exact_gate", "closest", "any", "sun", "shade")
 SMALL_PATH_KERNELS = ("closest_small", "any_small", "sun", "shade")
-# Each kernel's CUDA function in a profiler trace: (base name, template
-# flag ANY / HAS_SUN or None).
+BENCH_PATH_KERNELS = MAIN_PATH_KERNELS + ("closest_stats",)
+BENCH_EXTRAS = ("pallas_intersect_roofline", "pallas_roofline_arch",
+                "intersect_roofline")
+STATS_SCENES = (("synthetic:262144", 1 << 17), ("arch:262144", 1 << 17))
+# Each kernel's CUDA function in a profiler trace: (base name, its template
+# arguments as demangled and as mangled, or None).
 CUDA_FUNCTIONS = {
     "exact_gate": ("exact_gate_kernel", None),
-    "closest": ("tile_sweep_kernel", False),
-    "any": ("tile_sweep_kernel", True),
-    "closest_small": ("small_sweep_kernel", False),
-    "any_small": ("small_sweep_kernel", True),
+    "closest": ("tile_sweep_kernel", ("<false, false>", "ILb0ELb0EE")),
+    "any": ("tile_sweep_kernel", ("<true, false>", "ILb1ELb0EE")),
+    "closest_stats": ("tile_sweep_kernel", ("<false, true>", "ILb0ELb1EE")),
+    "closest_small": ("small_sweep_kernel", ("<false>", "ILb0E")),
+    "any_small": ("small_sweep_kernel", ("<true>", "ILb1E")),
     "sun": ("sun_kernel", None),
-    "shade": ("shade_kernel", True),
+    "shade": ("shade_kernel", ("<true>", "ILb1E")),
 }
+# Operations per unit of work, for the bounds (csrc comments): a ray-box
+# slab test of exact_gate_kernel (per axis 2 subtractions, 2 multiplies,
+# min, max and the running max and min; then the entry clamp, the
+# comparison and the least entry); a lane of the sun and of the shade
+# kernel (estimates from csrc/shade.cu: PCG4D draws, the cone sample and
+# the origin; ~600 for the whole shading stage).  A Baldwin-Weber test is
+# ptx_torch.bench.BW_FLOPS.
+GATE_OPS = 28
+SUN_OPS = 200
+SHADE_OPS = 600
 
 
 def log(msg):
@@ -105,15 +133,14 @@ def median_ms(fn, reps: int, warmup: int = 2) -> float:
 
 
 def device_ms(name, fn, reps: int = 5):
-    """Device time per call of kernel ``name`` alone (``torch.profiler``),
-    without the host time of its wrapper; None if the trace holds none."""
+    """Device time per launch of kernel ``name`` alone (``torch.profiler``),
+    without the host time of its wrapper: the mean over the launches the
+    trace holds (it can miss one); None if it holds none."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    base, flag = CUDA_FUNCTIONS[name]
-    marks = (None if flag is None else
-             ("<true>", "ILb1E") if flag else ("<false>", "ILb0E"))
+    base, marks = CUDA_FUNCTIONS[name]
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -123,17 +150,49 @@ def device_ms(name, fn, reps: int = 5):
     us = [e.time_range.end - e.time_range.start for e in prof.events()
           if e.device_type == DeviceType.CUDA and base in e.name
           and (marks is None or any(m in e.name for m in marks))]
-    return sum(us) / 1e3 / reps if len(us) == reps else None
+    return sum(us) / 1e3 / len(us) if us else None
 
 
-def time_kernel(timing, name, tag, kernel_fn, plain_fn, reps):
+def bound(ops, nbytes):
+    """(ms, "operations" or "bytes"): the least time an H100 could take for
+    ``ops`` float32 operations and ``nbytes`` bytes, at its published
+    peaks (``ptx_torch.bench.bound``)."""
+    from ptx_torch import bench
+
+    return bench.bound(ops, nbytes, bench.CARD_PEAKS["h100 80gb hbm3"])
+
+
+def tensor_bytes(*objs, lanes):
+    """Bytes of the per-lane tensors in ``objs`` (tensors, tuples, dicts):
+    each ``[lanes, ...]`` tensor read or written once; broadcast views and
+    scalars count nothing."""
+    import torch
+
+    total = 0
+    for o in objs:
+        if isinstance(o, dict):
+            total += tensor_bytes(*o.values(), lanes=lanes)
+        elif isinstance(o, (tuple, list)):
+            total += tensor_bytes(*o, lanes=lanes)
+        elif (torch.is_tensor(o) and o.dim() and o.shape[0] == lanes
+              and o.stride(0) != 0):
+            total += o.numel() * o.element_size()
+    return total
+
+
+def time_kernel(timing, name, tag, kernel_fn, plain_fn, reps, work):
     """CUDA-event medians of one call of the kernel's wrapper and of its
-    plain version, and the kernel's own device time."""
-    timing[name] = (median_ms(kernel_fn, reps), median_ms(plain_fn, reps))
+    plain version, the kernel's own device time, and the bound of the
+    launch's ``work`` = (operations, bytes)."""
+    ms, plain = median_ms(kernel_fn, reps), median_ms(plain_fn, reps)
     dev = device_ms(name, kernel_fn, reps)
-    log(f"{tag}: {name} kernel {timing[name][0]:.3f} ms per call "
+    bound_ms, bound_by = bound(*work)
+    timing[name] = dict(ms=ms, plain_ms=plain, device_ms=dev, bound_ms=bound_ms,
+                        bound_by=bound_by)
+    log(f"{tag}: {name} kernel {ms:.3f} ms per call "
         f"({'not measured' if dev is None else f'{dev:.4f} ms'} on the device "
-        f"alone), plain torch {timing[name][1]:.3f} ms")
+        f"alone), plain torch {plain:.3f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}: {work[0]:.4g} operations, {work[1]:.4g} bytes)")
 
 
 def camera_rays(fs, width, height, n, device):
@@ -212,6 +271,7 @@ def check_kernels(fs, static, ray_sets, label, timing, reps):
     """Kernel vs plain version on the card for each (name, orig, dirn)."""
     import torch
 
+    from ptx_torch import bench
     from ptx_torch.kernels import intersect_cuda as K
     from ptx_torch.kernels.tiles import HIT_T, _pack_rays
 
@@ -232,9 +292,12 @@ def check_kernels(fs, static, ray_sets, label, timing, reps):
             log(f"{tag}: exact_gate == plain (bit for bit); "
                 f"{float(plan[1].float().mean()):.1f} tiles planned per block")
             if timing is not None:
+                nb, nt = g_k.shape
                 time_kernel(timing, "exact_gate", tag,
                             lambda: K.exact_gate(rays, boxes),
-                            lambda: K._exact_gate(rays, boxes), reps)
+                            lambda: K._exact_gate(rays, boxes), reps,
+                            (nb * K.RB * nt * GATE_OPS,
+                             rays.numel() * 4 + boxes.numel() * 4 + nb * nt * 5))
         else:
             plan = K._plan(rays, boxes)
 
@@ -255,12 +318,16 @@ def check_kernels(fs, static, ray_sets, label, timing, reps):
         log(f"{tag}: any agrees on {a_share:.6f} of rays, "
             f"{float(a_k.float().mean()):.3f} occluded")
         if timing is not None:
+            visited = K._sweep(*plan, rays, tiles, False, stats=True)[2]
+            _, a_visited, searched = K._sweep(*plan, rays, tiles, True, stats=True)
             time_kernel(timing, "closest", tag,
                         lambda: K.closest_sweep(*plan, rays, tiles),
-                        lambda: K._sweep(*plan, rays, tiles, False), reps)
+                        lambda: K._sweep(*plan, rays, tiles, False), reps,
+                        bench.sweep_work(plan, visited, bench.SWEEP_RAY_BYTES))
             time_kernel(timing, "any", tag,
                         lambda: K.any_sweep(*plan, rays, tiles),
-                        lambda: K._sweep(*plan, rays, tiles, True), reps)
+                        lambda: K._sweep(*plan, rays, tiles, True), reps,
+                        bench.sweep_work(plan, a_visited, 32 + 4, searched))
     return errs
 
 
@@ -296,13 +363,61 @@ def check_small(fs, ray_sets, label, timing, reps):
             log(f"{tag}: any_small vs {other}: agrees on {a_share:.6f} of rays, "
                 f"{float(a_k.float().mean()):.3f} occluded")
         if timing is not None and name == "camera":
+            from ptx_torch.bench import BW_FLOPS, TILE_BYTES
+
+            n_rays, n_tiles = rays.shape[0], tiles.shape[0]
+            nbytes = n_tiles * TILE_BYTES + n_rays * 32
+            # Rays still without a hit before each tile: the any sweep's work.
+            searched = sum(
+                n_rays - int(K._small_sweep(rays, tiles[:k], True).sum()) if k
+                else n_rays for k in range(n_tiles))
             time_kernel(timing, "closest_small", tag,
                         lambda: K.closest_small(rays, tiles),
-                        lambda: K._small_sweep(rays, tiles, False), reps)
+                        lambda: K._small_sweep(rays, tiles, False), reps,
+                        (n_rays * n_tiles * K.TT * BW_FLOPS, nbytes + n_rays * 8))
             time_kernel(timing, "any_small", tag,
                         lambda: K.any_small(rays, tiles),
-                        lambda: K._small_sweep(rays, tiles, True), reps)
+                        lambda: K._small_sweep(rays, tiles, True), reps,
+                        (searched * K.TT * BW_FLOPS, nbytes + n_rays * 4))
     return errs
+
+
+def check_stats(label, fs, orig, dirn, timing, reps):
+    """The stats sweep on the card against its plain version, bit for bit
+    on all three outputs; its t and tri against the closest sweep kernel's;
+    visited <= count on every block.  Returns max |t| error (0)."""
+    import torch
+
+    from ptx_torch import bench
+    from ptx_torch.kernels import intersect_cuda as K
+    from ptx_torch.kernels.tiles import _pack_rays
+
+    rays, _ = _pack_rays(orig, dirn)
+    plan = K._plan_tiles(rays, fs.pboxes)
+    tiles = fs.ptiles
+    got = K.closest_sweep_stats(*plan, rays, tiles)
+    want = K._sweep(*plan, rays, tiles, False, stats=True)
+    n_diff = [int(lane_diffs(a, b).sum()) for a, b in zip(got, want)]
+    log(f"{label}: closest_stats vs plain: differing values t {n_diff[0]}, "
+        f"tri {n_diff[1]}, visited {n_diff[2]}")
+    if any(n_diff):
+        raise AssertionError(f"{label}: closest_stats differs from its plain version")
+    t_c, tri_c = K.closest_sweep(*plan, rays, tiles)
+    if lane_diffs(got[0], t_c).any() or not torch.equal(got[1], tri_c):
+        raise AssertionError(f"{label}: closest_stats t / tri differ from ptx_closest's")
+    visited, count = got[2], plan[1]
+    if not bool((visited <= count).all()):
+        raise AssertionError(f"{label}: a block visited more tiles than it planned")
+    log(f"{label}: t, tri == ptx_closest's; {int(visited.sum())} tiles visited "
+        f"of {int(count.sum())} planned ({float(visited.float().mean()):.2f} "
+        f"per block, {int((visited < count).sum())} of {count.shape[0]} blocks "
+        f"stopped early)")
+    if timing is not None:
+        time_kernel(timing, "closest_stats", label,
+                    lambda: K.closest_sweep_stats(*plan, rays, tiles),
+                    lambda: K._sweep(*plan, rays, tiles, False, stats=True), reps,
+                    bench.sweep_work(plan, visited, bench.SWEEP_RAY_BYTES))
+    return float((got[0] - want[0]).abs().max())
 
 
 def lane_diffs(a, b):
@@ -395,11 +510,16 @@ def check_shade(fs, static, cfg, device, timing, reps):
         f"{float(sun[2].float().mean()):.3f} shadowed")
     if timing is not None:
         tag = f"first bounce, {LAUNCH_RAYS} lanes"
+        n = LAUNCH_RAYS
         time_kernel(timing, "sun", tag, lambda: S.sun_sample(*sun_args),
-                    lambda: S._sun_sample(*sun_args), reps)
+                    lambda: S._sun_sample(*sun_args), reps,
+                    (n * SUN_OPS, tensor_bytes(sun_args, S.sun_sample(*sun_args),
+                                               lanes=n)))
         shade_args = (cfg, 0, state, h, mat, env, sun, energy)
         time_kernel(timing, "shade", tag, lambda: S.shade(*shade_args),
-                    lambda: S._shade(*shade_args), reps)
+                    lambda: S._shade(*shade_args), reps,
+                    (n * SHADE_OPS, tensor_bytes(shade_args[2:], S.shade(*shade_args),
+                                                 lanes=n)))
     return errs
 
 
@@ -491,12 +611,16 @@ def main() -> int:
     t0 = time.perf_counter()
     fs_np, static_np = R.load_scene(SLICE_SCENE)
     fs, static = R.ensure_accel(fs_np, static_np, cfg, device=dev)
+    from ptx_torch.accel import native
+
     log(f"{SLICE_SCENE}: {static.n_tris} triangles, {fs.ptiles.shape[0]} tiles, "
-        f"load + BVH + pack {time.perf_counter() - t0:.1f} s")
+        f"load + BVH ({'native' if native.available() else 'numpy'} builder) "
+        f"+ pack {time.perf_counter() - t0:.1f} s")
     timing = {}
+    scattered = scattered_rays(static, LAUNCH_RAYS, 7, dev)
     errs = check_kernels(fs, static, [
         ("camera", *camera_rays(fs, 256, 256, LAUNCH_RAYS, dev)),
-        ("scattered", *scattered_rays(static, LAUNCH_RAYS, 7, dev)),
+        ("scattered", *scattered),
     ], SLICE_SCENE, timing, reps=5)
     fs_s, static_s = R.ensure_accel(*R.load_scene(SMALL_SCENE), cfg, device=dev)
     small_rays = [
@@ -616,16 +740,48 @@ def main() -> int:
         check_png(out, 128, 96)
     log("cli: wrote a 128x96 PNG")
 
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
+    # 8. the stats sweep: the 32,768 scattered rays of phase 3 (timed), then
+    # the bench roofline's camera rays on its two scenes.
+    from ptx_torch import bench
+
+    errs["closest_stats"] = check_stats(f"{SLICE_SCENE}/scattered", fs, *scattered,
+                                        timing, reps=5)
+    for scene, n_rays in STATS_SCENES:
+        fs_r, _ = bench.roofline_scene(scene, dev)
+        errs["closest_stats"] = max(errs["closest_stats"], check_stats(
+            f"{scene}/{n_rays} roofline rays", fs_r,
+            *bench.roofline_rays(fs_r, n_rays), None, 0))
+        del fs_r
+
+    # 9. the bench path: counts reset just before, read just after
+    _build.reset_launches()
+    result = bench.run_bench(extras=BENCH_EXTRAS, device=dev)
+    torch.cuda.synchronize()
+    bench_launches = dict(_build.LAUNCHES)
+    log(f"bench path launches: {bench_launches}")
+    for name in BENCH_PATH_KERNELS:
+        if bench_launches[name] <= 0:
+            raise AssertionError(f"bench path never launched the {name} kernel")
+    for name, row in [("headline", result), *result.get("extra", {}).items()]:
+        if "error" in row or "skipped" in row:
+            raise AssertionError(f"bench row {name}: {row}")
+    log(json.dumps(result))
+
+    if "jax" in sys.modules or "ptx" in sys.modules:
+        raise AssertionError("the port imported jax or the JAX package")
 
     record = []
     for name, (source, replaces) in REPLACES.items():
-        ms, plain = timing[name]
-        n = (small_launches if name.endswith("_small") else launches)[name]
+        t = timing[name]
+        n = (small_launches if name.endswith("_small") else
+             bench_launches if name == "closest_stats" else launches)[name]
         record.append(dict(name=name, route="cuda", source=source,
                            replaces=replaces, launches=n,
-                           max_abs_err=errs[name], ms=ms, plain_ms=plain))
+                           max_abs_err=errs[name], ms=t["ms"],
+                           plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                           # No single PyTorch call computes any of these.
+                           bound_by=t["bound_by"], library_ms=None,
+                           device_ms=t["device_ms"]))
     log(smi)
     log(json.dumps({"kernels": record}))
     log(json.dumps({"ok": True, "device": {

@@ -1,13 +1,19 @@
-"""Command line of the port: the ``render`` subcommand.
+"""Command line of the port: the ``render`` and ``bench`` subcommands.
 
 Usage:
     python -m ptx_torch.cli render --scene arch:300000 --out out.png \
         --width 256 --height 256 --samples 4 --bounces 4 [--device cuda]
+    python -m ptx_torch.cli bench [--device cpu]
+
+``bench`` measures the headline row (``arch:300000`` at 256x256, 16 spp,
+4 bounces unless flags say otherwise) and the extra rows of
+``ptx_torch.bench`` and prints one JSON line.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 import time
 
@@ -18,8 +24,8 @@ SHADERS = {
 }
 
 
-def _add_render_args(p: argparse.ArgumentParser):
-    p.add_argument("--scene", required=True,
+def _add_render_args(p: argparse.ArgumentParser, scene_required: bool = True):
+    p.add_argument("--scene", required=scene_required,
                    help="glTF path, synthetic:<n_tris>[:seed] or arch:<n_tris>")
     p.add_argument("--out", default="out.png")
     p.add_argument("--device", default="cuda", help="torch device (cuda, cpu)")
@@ -46,7 +52,7 @@ def _add_render_args(p: argparse.ArgumentParser):
 
 
 def _config_from_args(args):
-    from ptx.config import Quirks, RenderConfig
+    from ptx_torch.config import Quirks, RenderConfig
 
     if args.config:
         with open(args.config) as f:
@@ -71,15 +77,22 @@ def _config_from_args(args):
     )
 
 
+def _refuse_unported(args) -> None:
+    from ptx_torch.render import NOT_PORTED
+
+    for flag in ("checkpoint", "env", "visualize", "distributed", "profile",
+                 "backward"):
+        if getattr(args, flag, False):
+            raise NotImplementedError(NOT_PORTED[flag])
+
+
 def cmd_render(args) -> int:
     import torch
 
-    from ptx.io.png import write_png
+    from ptx_torch.io.png import write_png
     from ptx_torch import render as R
 
-    for flag in ("checkpoint", "env", "visualize", "distributed", "profile"):
-        if getattr(args, flag):
-            raise NotImplementedError(R.NOT_PORTED[flag])
+    _refuse_unported(args)
 
     cfg = _config_from_args(args)
     device = torch.device(args.device)
@@ -106,12 +119,29 @@ def cmd_render(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    from ptx_torch.bench import run_bench
+
+    _refuse_unported(args)
+    result = run_bench(scene=args.scene, cfg=_config_from_args(args),
+                       device=args.device)
+    print(json.dumps(result))
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="ptx_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
     p = sub.add_parser("render")
     _add_render_args(p)
     p.set_defaults(fn=cmd_render)
+    p = sub.add_parser("bench")
+    _add_render_args(p, scene_required=False)
+    p.add_argument("--backward", action="store_true",
+                   help="grad-paths/s (not ported yet)")
+    # The headline configuration of ptx_torch.bench.
+    p.set_defaults(fn=cmd_bench, scene="arch:300000", width=256, height=256,
+                   samples=16, bounces=4, intersector="pallas")
     args = parser.parse_args(argv)
     return args.fn(args)
 

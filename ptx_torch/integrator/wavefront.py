@@ -22,8 +22,8 @@ from ptx_torch import sampling
 from ptx_torch.kernels import sorting
 from ptx_torch.scene import camera as pcamera
 from ptx_torch.scene import textures
-from ptx.config import RenderConfig
-from ptx.scene.flatten import FlatScene, SceneStatic
+from ptx_torch.config import RenderConfig
+from ptx_torch.scene.flatten import FlatScene, SceneStatic
 
 
 class RayState(NamedTuple):

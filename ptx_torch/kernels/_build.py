@@ -41,6 +41,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "ptx_exact_gate": [_P, _P, _I, _I, _P, _P, _P],
     "ptx_closest": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
+    "ptx_closest_stats": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
     "ptx_any": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
     "ptx_closest_small": [_P, _P, _I, _I, _P, _P, _P],
     "ptx_any_small": [_P, _P, _I, _I, _P, _P],
@@ -51,7 +52,7 @@ _SIGNATURES = {
 # Kernel launches per wrapper since the last reset_launches().
 LAUNCHES = {
     "exact_gate": 0, "closest": 0, "any": 0, "closest_small": 0,
-    "any_small": 0, "sun": 0, "shade": 0,
+    "any_small": 0, "sun": 0, "shade": 0, "closest_stats": 0,
 }
 
 _lock = threading.Lock()

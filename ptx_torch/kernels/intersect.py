@@ -15,7 +15,7 @@ import torch
 
 from ptx_torch import geometry
 from ptx_torch.integrator.wavefront import compute_hit_attrs
-from ptx.scene.flatten import FlatScene
+from ptx_torch.scene.flatten import FlatScene
 
 
 class Hit(NamedTuple):

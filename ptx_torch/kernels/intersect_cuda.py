@@ -7,6 +7,9 @@ versions (port of the kernels and wrappers of
 * :func:`closest_sweep` / :func:`any_sweep` - ``csrc/tile_sweep.cu``, plain
   version :func:`_sweep`: each block's planned tiles front to back, the
   Baldwin-Weber test and the packed-min key.
+* :func:`closest_sweep_stats` - the same kernel's stats instantiation,
+  plain version ``_sweep(..., stats=True)``: the closest sweep plus the
+  tiles each block tested, for the bench's roofline (:func:`closest_stats`).
 * :func:`closest_small` / :func:`any_small` - ``csrc/tile_sweep.cu``, plain
   version :func:`_small_sweep`: scenes of at most SMALL_TILES tiles, every
   block against every tile in tile order, no plan.
@@ -41,7 +44,7 @@ from ptx_torch.kernels.tiles import (
     identity_plan,
     sort_plan,
 )
-from ptx.scene.flatten import FlatScene
+from ptx_torch.scene.flatten import FlatScene
 
 # float32(-EPS) and float32(1 + EPS), held as python floats that float32
 # represents exactly, so a comparison gives the same answer in any precision.
@@ -157,11 +160,15 @@ def _test_matrix(rays, tris):
     return torch.where(ok, t, INF)
 
 
-def _sweep(order, count, near, rays, tiles, any_mode: bool):
+def _sweep(order, count, near, rays, tiles, any_mode: bool,
+           stats: bool = False):
     """Plain version of ``csrc/tile_sweep.cu``: all blocks step through
     their plans in lockstep, each block with the kernel's exit rule.
     Returns ``(t_trunc [R_pad] f32, tri [R_pad] i32)`` or, with
-    ``any_mode``, ``hit [R_pad] i32``."""
+    ``any_mode``, ``hit [R_pad] i32``.  ``stats`` adds ``visited [nb] i32``,
+    the tiles each block tested (the stats sweep's third output), and in
+    ``any_mode`` also ``searched [nb] i64``, the sum over those tiles of the
+    block's rays still without a hit (the any sweep's work)."""
     dev = rays.device
     nb = rays.shape[0] // RB
     r = rays.view(nb, RB, 8)
@@ -170,6 +177,8 @@ def _sweep(order, count, near, rays, tiles, any_mode: bool):
     best_tile = torch.zeros((nb, RB), dtype=torch.int32, device=dev)
     hit = torch.zeros((nb, RB), dtype=torch.bool, device=dev)
     bound = torch.full((nb,), INF, dtype=torch.float32, device=dev)
+    visited = torch.zeros((nb,), dtype=torch.int32, device=dev)
+    searched = torch.zeros((nb,), dtype=torch.int64, device=dev)
     running = count > 0
     for k in range(int(count.max()) if nb else 0):
         if k > 0:
@@ -178,9 +187,11 @@ def _sweep(order, count, near, rays, tiles, any_mode: bool):
         blocks = running.nonzero()[:, 0]
         if blocks.numel() == 0:
             break
+        visited[blocks] += 1
         tile = order[blocks, k]
         t = _test_matrix(r[blocks], tiles[tile.long(), 0:12])
         if any_mode:
+            searched[blocks] += (~hit[blocks]).sum(1)
             hit[blocks] |= (t < INF).any(-1)
             continue
         key = (t.view(torch.int32) & ~LANE_BITS) | lane
@@ -192,10 +203,13 @@ def _sweep(order, count, near, rays, tiles, any_mode: bool):
         best_tile[blocks] = torch.where(closer, tile[:, None], best_tile[blocks])
         bound[blocks] = (new_key & ~LANE_BITS).view(torch.float32).amax(1)
     if any_mode:
-        return hit.view(-1).to(torch.int32)
+        hit = hit.view(-1).to(torch.int32)
+        return (hit, visited, searched) if stats else hit
     empty = (count == 0)[:, None]
     t = torch.where(empty, INF, (best_key & ~LANE_BITS).view(torch.float32))
     tri = torch.where(empty, 0, best_tile * TT + (best_key & LANE_BITS))
+    if stats:
+        return t.view(-1), tri.view(-1), visited
     return t.view(-1), tri.view(-1)
 
 
@@ -225,6 +239,27 @@ def closest_sweep(order, count, near, rays, tiles):
                       tri.data_ptr())
         _build.LAUNCHES["closest"] += 1
     return t, tri
+
+
+def closest_sweep_stats(order, count, near, rays, tiles):
+    """The stats sweep (port of ``_closest_stats_kernel``): the closest
+    sweep's ``(t_trunc [R_pad], tri [R_pad])`` and ``visited [nb]`` int32,
+    the tiles each block tested.  The count is of the port's own sweep,
+    which exits per tile where the Pallas kernel exits per group of 4
+    (``csrc/tile_sweep.cu``, ``ptx_closest_stats``)."""
+    if _build.on_cpu(order, count, near, rays, tiles):
+        return _sweep(order, count, near, rays, tiles, any_mode=False, stats=True)
+    nb, n_tiles = _check_sweep_args(order, count, near, rays, tiles)
+    t = torch.empty((nb * RB,), dtype=torch.float32, device=rays.device)
+    tri = torch.empty((nb * RB,), dtype=torch.int32, device=rays.device)
+    visited = torch.empty((nb,), dtype=torch.int32, device=rays.device)
+    if nb:
+        _build.launch(_build.load().ptx_closest_stats, order.data_ptr(),
+                      count.data_ptr(), near.data_ptr(), rays.data_ptr(),
+                      tiles.data_ptr(), nb, n_tiles, t.data_ptr(),
+                      tri.data_ptr(), visited.data_ptr())
+        _build.LAUNCHES["closest_stats"] += 1
+    return t, tri, visited
 
 
 def any_sweep(order, count, near, rays, tiles):
@@ -362,6 +397,18 @@ def any_hit(fs: FlatScene, orig, dirn):
     else:
         hit = any_sweep(*_plan_tiles(rays, boxes), rays, tiles)
     return hit[:r] > 0
+
+
+def closest_stats(fs: FlatScene, orig, dirn):
+    """The bench roofline's account of the closest sweep (port of
+    ``closest_pallas_stats``): the plan and the stats sweep on ``R`` rays,
+    ``(t_trunc [R_pad], tri [R_pad], visited [R_pad / 128])``.  Needs a
+    scene above the small-sweep path."""
+    rays, _ = _pack_rays(orig, dirn)
+    tiles, boxes = _scene_tiles(fs)
+    if tiles.shape[0] <= SMALL_TILES:
+        raise ValueError("stats sweep needs > SMALL_TILES tiles")
+    return closest_sweep_stats(*_plan_tiles(rays, boxes), rays, tiles)
 
 
 def make_backend():

@@ -42,8 +42,8 @@ from ptx_torch.integrator.wavefront import (
 )
 from ptx_torch.kernels import _build, sorting
 from ptx_torch.scene import textures
-from ptx.config import RenderConfig
-from ptx.scene.flatten import FlatScene, SceneStatic
+from ptx_torch.config import RenderConfig
+from ptx_torch.scene.flatten import FlatScene, SceneStatic
 
 LANES = 128
 EPS = 1e-4

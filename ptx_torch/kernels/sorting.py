@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from ptx.scene.flatten import SceneStatic
+from ptx_torch.scene.flatten import SceneStatic
 
 # Bits per axis of the coarse morton grid (7 bits/axis = 21-bit cell id).
 MORTON_BITS = 7

@@ -2,7 +2,7 @@
 the conservative frustum gate (port of the non-kernel parts of
 ``ptx/kernels/intersect_pallas.py``).
 
-Triangles are BVH-ordered (``ptx.accel.bvh``), so a TT-wide tile of
+Triangles are BVH-ordered (``ptx_torch.accel.bvh``), so a TT-wide tile of
 consecutive triangles is spatially local and has a tight box.  Each tile is
 one contiguous [16, TT] float32 block: rows 0-11 hold the Baldwin-Weber
 components of :func:`_bw_rows`, rows 12-15 are zero.  The pack is the JAX
@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ptx.scene.flatten import FlatScene
+from ptx_torch.scene.flatten import FlatScene
 
 RB = 128  # rays per block
 TT = 512  # triangles per tile

@@ -1,9 +1,8 @@
 """High-level single-device rendering API (port of ``ptx/render.py``).
 
 load scene -> attach the traversal tiles -> per-sample wavefront launches ->
-running mean (or claim blend) -> ACES/sRGB finalize.  The shared
-``RenderConfig`` keeps the JAX package's meanings, so one config object
-drives both packages:
+running mean (or claim blend) -> ACES/sRGB finalize.  ``RenderConfig`` is
+the port's copy of the JAX package's, with the same fields and meanings:
 
 * ``intersector``: "pallas" is the planned tile traversal (the CUDA kernels
   on a CUDA device, their plain versions on the CPU); "auto" picks it on
@@ -19,13 +18,15 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import sys
+import time
 from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ptx.config import RenderConfig
-from ptx.scene.flatten import FlatScene, SceneStatic
+from ptx_torch.config import RenderConfig
+from ptx_torch.scene.flatten import FlatScene, SceneStatic
 from ptx_torch.integrator import accumulate
 from ptx_torch.integrator.wavefront import make_integrator
 from ptx_torch.scene.bridge import to_device, to_host
@@ -42,6 +43,8 @@ NOT_PORTED = {
     "visualize": "debug visualizations are not ported yet (ROADMAP Queue A item 11)",
     "distributed": "multi-device rendering is not ported yet (ROADMAP Queue A item 12)",
     "profile": "the port's profiling hook is not written yet (ROADMAP Queue A item 8)",
+    "backward": "the backward bench rows need ptx/diff, which is not ported yet "
+                "(ROADMAP Queue A item 10)",
 }
 
 
@@ -49,21 +52,21 @@ def load_scene(path: str, device=None, scene_work=None, env_image=None,
                quirks=None, pad_multiple: int = 256
                ) -> Tuple[FlatScene, SceneStatic]:
     """Load + flatten a glTF scene, ``synthetic:<n_tris>[:seed]`` or
-    ``arch:<n_tris>`` with the JAX package's host code.  Returns numpy
+    ``arch:<n_tris>`` with the port's copy of the JAX package's host code.  Returns numpy
     arrays when ``device`` is None, else tensors on ``device``."""
     if env_image is not None:
         raise NotImplementedError(NOT_PORTED["env"])
     if path.startswith("synthetic:"):
-        from ptx.scene.synthetic import load_synthetic
+        from ptx_torch.scene.synthetic import load_synthetic
 
         fs, static = load_synthetic(path)
     elif path.startswith("arch:"):
-        from ptx.scene.arch import load_arch
+        from ptx_torch.scene.arch import load_arch
 
         fs, static = load_arch(path)
     else:
-        from ptx.scene import gltf
-        from ptx.scene.flatten import apply_emissive_strength, flatten
+        from ptx_torch.scene import gltf
+        from ptx_torch.scene.flatten import apply_emissive_strength, flatten
 
         scene = gltf.load(path, scene_work=scene_work)
         fs, static = flatten(
@@ -108,15 +111,23 @@ def ensure_accel(fs: FlatScene, static: SceneStatic, cfg: RenderConfig,
     attach the traversal tiles when the resolved backend is the tile
     traversal.  Runs on the host; returns tensors on ``device`` (numpy when
     ``device`` is None)."""
+    for obj, cls in ((static, SceneStatic), (cfg, RenderConfig)):
+        if not isinstance(obj, cls):
+            raise TypeError(f"{type(obj).__module__}.{type(obj).__name__}: "
+                            f"expected ptx_torch's {cls.__name__}")
     name = resolve_intersector(static, cfg, device or "cpu")
     fs = to_host(fs)
     if name == "pallas":
         from ptx_torch.kernels.tiles import attach_tiles
 
         if static.n_tris > 2048 and static.n_bvh_nodes == 0:
-            from ptx.accel.bvh import build_bvh
+            from ptx_torch.accel import bvh, native
 
-            fs, static = build_bvh(fs, static)
+            t0 = time.perf_counter()
+            fs, static = bvh.build_bvh(fs, static)
+            print(f"BVH: {'native' if native.available() else 'numpy'} builder, "
+                  f"{static.n_tris} triangles, {static.n_bvh_nodes} nodes in "
+                  f"{time.perf_counter() - t0:.2f} s", file=sys.stderr)
         fs = attach_tiles(fs)
     return (to_device(fs, device) if device is not None else fs), static
 

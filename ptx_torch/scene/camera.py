@@ -6,7 +6,7 @@ import torch
 
 from ptx_torch import math as pmath
 from ptx_torch import sampling
-from ptx.scene.flatten import FlatScene
+from ptx_torch.scene.flatten import FlatScene
 
 
 def generate_rays(

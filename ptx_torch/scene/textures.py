@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from ptx_torch import math as pmath
-from ptx.scene.flatten import (
+from ptx_torch.scene.flatten import (
     FlatScene,
     SLOT_ALBEDO,
     SLOT_EMISSIVE,

@@ -1,0 +1,37 @@
+"""Carry the JAX package's host objects over to the port's own classes.
+
+The port (``ptx_torch``) keeps its own copies of ``ptx.config`` and
+``ptx.scene.flatten`` and refuses the JAX package's classes.  Parity tests
+that load a scene or build a config with the JAX package rebuild the port's
+``FlatScene`` / ``SceneStatic`` / ``RenderConfig`` from it, field by field.
+"""
+
+import dataclasses
+
+import numpy as np
+
+from ptx_torch import config as pconfig
+from ptx_torch.scene import flatten as pflatten
+
+
+def port_flat(fs):
+    """A ``ptx_torch`` ``FlatScene`` of numpy arrays from a JAX package one."""
+    return pflatten.FlatScene(**{k: np.asarray(v) for k, v in fs._asdict().items()})
+
+
+def port_static(static):
+    return pflatten.SceneStatic(**{
+        f.name: getattr(static, f.name)
+        for f in dataclasses.fields(pflatten.SceneStatic)
+    })
+
+
+def port_scene(fs, static):
+    return port_flat(fs), port_static(static)
+
+
+def port_config(cfg):
+    fields = {f.name: getattr(cfg, f.name)
+              for f in dataclasses.fields(pconfig.RenderConfig)}
+    fields["quirks"] = pconfig.Quirks(**dataclasses.asdict(cfg.quirks))
+    return pconfig.RenderConfig(**fields)

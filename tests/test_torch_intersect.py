@@ -24,10 +24,12 @@ from ptx.accel.bvh import build_bvh
 from ptx.kernels import intersect as jintersect
 from ptx.kernels import intersect_pallas as kp
 from ptx.scene.arch import load_arch
+from ptx.scene.flatten import FlatScene as jflat
 from ptx.scene.synthetic import load_synthetic
 from ptx_torch.kernels import _build, intersect, intersect_cuda, sorting, tiles
 from ptx_torch.scene.bridge import to_device
 from ptx_torch.scene.camera import generate_rays
+from _torch_port import port_flat, port_scene
 
 MAX_FLIP_SHARE = 1e-3
 
@@ -42,8 +44,9 @@ def _scene(spec):
         fs, static = build_bvh(*load_arch(spec))
     else:
         fs, static = load_synthetic(spec)
+    fs, static = port_scene(fs, static)
     fs = tiles.attach_tiles(fs)
-    jfs = fs._replace(**{k: jnp.asarray(v) for k, v in fs._asdict().items()})
+    jfs = jflat(**{k: jnp.asarray(v) for k, v in fs._asdict().items()})
     return fs, jfs, to_device(fs, "cpu"), static
 
 
@@ -194,7 +197,7 @@ def test_closest_needs_tiles():
     fs, static = load_synthetic("synthetic:2000")
     orig = torch.zeros((4, 3))
     with pytest.raises(ValueError, match="traversal tiles"):
-        intersect_cuda.closest(to_device(fs, "cpu"), orig, orig + 1.0)
+        intersect_cuda.closest(to_device(port_flat(fs), "cpu"), orig, orig + 1.0)
 
 
 @pytest.mark.parametrize("spec", ["arch:2000", "synthetic:2000"])

@@ -7,6 +7,7 @@ implementations, which differ by an ulp or two (rtol 1e-6); components that
 cross zero get the same bound as an absolute tolerance.
 """
 
+import os
 import subprocess
 import sys
 
@@ -28,6 +29,7 @@ from ptx_torch import sampling
 from ptx_torch.integrator import accumulate
 from ptx_torch.scene import camera, textures
 from ptx_torch.scene.bridge import to_device
+from _torch_port import port_flat, port_static
 
 N = 4096
 
@@ -45,11 +47,42 @@ def _unit(rng, n):
     return v / np.linalg.norm(v, axis=1, keepdims=True)
 
 
+_WITHOUT_JAX_OR_PTX = r"""
+import importlib, importlib.abc, pkgutil, sys
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "ptx"):
+            raise ImportError(f"the port imported {name}")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import ptx_torch
+for mod in pkgutil.walk_packages(ptx_torch.__path__, "ptx_torch."):
+    importlib.import_module(mod.name)
+import chip_smoke
+
+from ptx_torch import bench, render as R
+fs, static = R.load_scene("synthetic:2000")
+res = R.render(fs, static, R.RenderConfig(width=16, height=16, samples=1,
+                                          bounces=2), device="cpu")
+assert res.image.shape == (16, 16, 4)
+bench.run_bench(tiny=True, device="cpu")
+print("ok")
+"""
+
+
 def test_port_imports_without_jax():
-    code = ("import sys, ptx_torch.render, ptx_torch.cli, "
-            "ptx_torch.kernels.intersect_cuda; "
-            "sys.exit(1 if 'jax' in sys.modules else 0)")
-    assert subprocess.run([sys.executable, "-c", code]).returncode == 0
+    """Every module of the port, a render and the tiny bench, with ``jax``
+    and the JAX package ``ptx`` refused at import."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", _WITHOUT_JAX_OR_PTX], cwd=root,
+                         capture_output=True, text=True, timeout=600,
+                         env={**os.environ, "PTX_BENCH_FULL": "1",
+                              # torch's spinning thread pool, beside the
+                              # other test workers, multiplies the run time.
+                              "OMP_NUM_THREADS": "1"})
+    assert out.returncode == 0 and out.stdout.split()[-1] == "ok", out.stderr[-3000:]
 
 
 @pytest.mark.parametrize("seed", [0, 7, 2**32 - 1])
@@ -122,7 +155,8 @@ def test_generate_rays_matches():
     jfs = fs._replace(**{k: jnp.asarray(getattr(fs, k))
                          for k in ("cam_origin", "cam_basis", "cam_tan_half_fov")})
     ref = jcamera.generate_rays(jfs, jnp.asarray(pix), jnp.asarray(smp), w, h, 3)
-    got = camera.generate_rays(to_device(fs, "cpu"), _t(pix), _t(smp), w, h, 3)
+    got = camera.generate_rays(to_device(port_flat(fs), "cpu"), _t(pix), _t(smp),
+                               w, h, 3)
     for g, r in zip(got, ref):
         np.testing.assert_allclose(g.numpy(), _np(r), rtol=0, atol=1e-6)
 
@@ -134,7 +168,8 @@ def test_material_lookup_matches():
     uv = rng.uniform(-1.5, 2.5, (N, 2)).astype(np.float32)
     jfs = fs._replace(**{k: jnp.asarray(v) for k, v in fs._asdict().items()})
     ref = jtextures.material_lookup(jfs, jnp.asarray(mat_id), jnp.asarray(uv), static)
-    got = textures.material_lookup(to_device(fs, "cpu"), _t(mat_id), _t(uv), static)
+    got = textures.material_lookup(to_device(port_flat(fs), "cpu"), _t(mat_id),
+                                   _t(uv), port_static(static))
     assert set(got) == set(ref)
     for k in ref:
         np.testing.assert_allclose(got[k].numpy(), _np(ref[k]), rtol=0, atol=1e-6,

@@ -23,6 +23,8 @@ from ptx.scene.flatten import flatten
 from ptx.scene.gltf import SunData
 from ptx.scene.synthetic import make_textured_quads
 from ptx_torch import render
+from ptx_torch.config import RenderConfig as PortConfig
+from _torch_port import port_config, port_scene
 from test_opacity import stacked_planes_scene
 
 CASES = {
@@ -90,7 +92,7 @@ def test_render_matches_jax(case, jax_free_import):
     spec, size = CASES[case]
     cfg = RenderConfig(intersector="pallas", shader="xla", **size)
     fs, static = jrender.load_scene(spec, device=False)
-    got = render.render(fs, static, cfg, device="cpu")
+    got = render.render(*port_scene(fs, static), port_config(cfg), device="cpu")
     ref = jrender.render(fs, static, cfg)
     _assert_agrees(got, ref, cfg)
 
@@ -99,25 +101,25 @@ def test_render_matches_jax(case, jax_free_import):
 def test_pallas_render_matches_jax(case):
     spec, size, shader = PALLAS_CASES[case]
     cfg = RenderConfig(intersector="pallas", shader=shader, **size)
-    assert render.resolve_shader(cfg) == "pallas"
+    assert render.resolve_shader(port_config(cfg)) == "pallas"
     fs, static = _load(spec)
-    got = render.render(fs, static, cfg, device="cpu")
+    got = render.render(*port_scene(fs, static), port_config(cfg), device="cpu")
     ref = jrender.render(fs, static, dataclasses.replace(cfg, shader="pallas"))
     _assert_agrees(got, ref, cfg)
 
 
 def test_unaligned_pixel_count_rejected():
-    fs, static = jrender.load_scene("synthetic:500", device=False)
-    cfg = RenderConfig(width=33, height=31, samples=1, bounces=1,
-                       intersector="brute", shader="pallas")
+    fs, static = render.load_scene("synthetic:500")
+    cfg = PortConfig(width=33, height=31, samples=1, bounces=1,
+                     intersector="brute", shader="pallas")
     with pytest.raises(ValueError, match="multiple of 128"):
         render.render(fs, static, cfg, device="cpu")
 
 
 def test_auto_falls_back_for_unaligned():
-    fs, static = jrender.load_scene("synthetic:500", device=False)
-    cfg = RenderConfig(width=33, height=31, samples=1, bounces=1,
-                       intersector="brute", shader="auto")
+    fs, static = render.load_scene("synthetic:500")
+    cfg = PortConfig(width=33, height=31, samples=1, bounces=1,
+                     intersector="brute", shader="auto")
     assert render.resolve_shader(cfg) == "xla"
     res = render.render(fs, static, cfg, device="cpu")  # auto -> xla, no error
     assert np.isfinite(res.color).all()
@@ -127,34 +129,42 @@ def test_auto_falls_back_for_unaligned():
 
 
 def test_resolution_rules():
-    _, static = jrender.load_scene("arch:2000", device=False)
-    cfg = RenderConfig()
+    _, static = render.load_scene("arch:2000")
+    cfg = PortConfig()
     assert render.resolve_intersector(static, cfg, "cuda") == "pallas"
     assert render.resolve_intersector(static, cfg, "cpu") == "brute"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render.resolve_intersector(static, RenderConfig(intersector="bvh"), "cuda")
+        render.resolve_intersector(static, PortConfig(intersector="bvh"), "cuda")
     # The shader rule of ptx/render.py::resolve_shader, on any device.
     for shader, size in (("auto", (32, 24)), ("auto", (33, 31)),
                          ("auto", (1920, 1080)), ("auto", (640, 480)),
                          ("xla", (32, 24)), ("pallas", (32, 24)),
                          ("pallas", (33, 31))):
         c = RenderConfig(shader=shader, width=size[0], height=size[1])
-        assert render.resolve_shader(c) == jrender.resolve_shader(c)
-    assert render.resolve_shader(RenderConfig(width=32, height=24)) == "pallas"
-    assert render.resolve_shader(RenderConfig(width=33, height=31)) == "xla"
+        assert render.resolve_shader(port_config(c)) == jrender.resolve_shader(c)
+    assert render.resolve_shader(PortConfig(width=32, height=24)) == "pallas"
+    assert render.resolve_shader(PortConfig(width=33, height=31)) == "xla"
     with pytest.raises(ValueError, match="unknown shader"):
-        render.resolve_shader(RenderConfig(shader="cuda"))
+        render.resolve_shader(PortConfig(shader="cuda"))
     for rpb, cfg in ((None, RenderConfig(width=32, height=24)),
                      (32768, RenderConfig(width=256, height=256)),
                      (28800, RenderConfig(width=1920, height=1080))):
-        assert render.resolve_rays_per_batch(cfg) == jrender.resolve_rays_per_batch(cfg)
-        assert render.resolve_rays_per_batch(cfg) == rpb
-        assert (render.resolve_samples_per_launch(cfg)
+        pcfg = port_config(cfg)
+        assert render.resolve_rays_per_batch(pcfg) == jrender.resolve_rays_per_batch(cfg)
+        assert render.resolve_rays_per_batch(pcfg) == rpb
+        assert (render.resolve_samples_per_launch(pcfg)
                 == jrender.resolve_samples_per_launch(cfg))
+    # The port refuses the JAX package's classes.
+    jfs, jstatic = jrender.load_scene("synthetic:500", device=False)
+    with pytest.raises(TypeError, match="ptx_torch"):
+        render.render(jfs, jstatic, PortConfig(width=16, height=16), device="cpu")
+    with pytest.raises(TypeError, match="ptx_torch"):
+        render.render(*port_scene(jfs, jstatic), RenderConfig(width=16, height=16),
+                      device="cpu")
 
 
 def test_cli_renders_png(tmp_path):
-    from ptx.io.png import read_png
+    from ptx_torch.io.png import read_png
 
     out = tmp_path / "out.png"
     subprocess.run(

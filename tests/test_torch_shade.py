@@ -27,7 +27,9 @@ import torch
 
 from ptx.config import Quirks, RenderConfig
 from ptx.kernels import shade_pallas as sp
+from ptx_torch import config as pconfig
 from ptx_torch.kernels import _build, shade_cuda
+from _torch_port import port_config
 
 BOUNCES = 4
 MIN_AGREE = 0.999
@@ -158,7 +160,7 @@ def test_shade_matches_pallas(has_sun, quirks, transparent):
     cfg = RenderConfig(bounces=BOUNCES, seed=5, quirks=QUIRKS[quirks](),
                        transparent_background=transparent)
     a = _inputs(N_SMALL, seed=2)
-    got = _port_shade(a, cfg, has_sun, it=1)
+    got = _port_shade(a, port_config(cfg), has_sun, it=1)
     want = _jax_shade(a, cfg, has_sun, it=1)
     assert _share(got, want) >= MIN_AGREE
     # Every branch was taken: passthrough, catcher, continue and stop.
@@ -171,13 +173,13 @@ def test_shade_matches_pallas(has_sun, quirks, transparent):
 def test_partial_block_rows_shade_correctly(has_sun):
     cfg = RenderConfig(bounces=BOUNCES, seed=3)
     a = _inputs(N_PARTIAL, seed=4)
-    got = _port_shade(a, cfg, has_sun, it=0)
+    got = _port_shade(a, port_config(cfg), has_sun, it=0)
     want = _jax_shade(a, cfg, has_sun, it=0)
     assert _share(got, want) >= MIN_AGREE
 
 
 def test_wrappers_run_plain_on_cpu():
-    cfg = RenderConfig(bounces=BOUNCES)
+    cfg = pconfig.RenderConfig(bounces=BOUNCES)
     a = shade_cuda.random_inputs(256, BOUNCES, seed=6)
     state, h, mat, env, sun = shade_cuda.inputs_from_arrays(a, "cpu")
     sun_consts = (*map(float, SUN_DIR), float(SUN_ANGLE))

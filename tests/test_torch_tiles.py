@@ -18,6 +18,7 @@ from ptx.scene.synthetic import load_synthetic
 from ptx_torch.kernels import _build, intersect_cuda, sorting, tiles
 from ptx_torch.scene.bridge import to_device
 from ptx_torch.scene.camera import generate_rays
+from _torch_port import port_scene
 
 
 def _t(x):
@@ -26,8 +27,7 @@ def _t(x):
 
 @pytest.fixture(scope="module")
 def arch():
-    fs, static = load_arch("arch:2000")
-    fs, static = build_bvh(fs, static)
+    fs, static = port_scene(*build_bvh(*load_arch("arch:2000")))
     return tiles.attach_tiles(fs), static
 
 
@@ -54,7 +54,7 @@ def test_attach_tiles_bit_identical(spec):
     if spec.startswith("arch"):
         fs, static = build_bvh(fs, static)
     ref = kp.attach_tiles(fs)
-    got = tiles.attach_tiles(fs)
+    got = tiles.attach_tiles(port_scene(fs, static)[0])
     assert got.ptiles.dtype == np.float32 and got.ptiles.shape[1:] == (16, tiles.TT)
     np.testing.assert_array_equal(got.ptiles, ref.ptiles)
     np.testing.assert_array_equal(got.pboxes, ref.pboxes)
