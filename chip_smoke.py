@@ -5,13 +5,18 @@
 
 Phases (any failure raises, and the exit code is then non-zero):
 1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. build: nvcc builds ``ptx_torch/csrc/*.cu`` (timed);
-3. each traversal kernel against its plain torch version, on the card, at
-   the main path's shapes: 32,768 camera rays and 32,768 seeded random rays
-   from inside ``arch:300000`` (dead lanes parked, sorted as the wavefront
-   is), then ``synthetic:2000`` (4 tiles): the planned sweeps on the
-   identity plan, and the small sweeps against their plain version and
-   against those; median times by CUDA events;
+2. build: nvcc builds ``ptx_torch/csrc/*.cu`` (timed); then the planned
+   sweeps' branch-free reciprocal against ``__frcp_rn`` on all 2^32 float
+   bit patterns (no difference where it keeps its own result);
+3. each traversal kernel against its plain torch version, bit for bit, on
+   the card: 32,768 camera rays and 32,768 seeded random rays from inside
+   ``arch:300000`` (dead lanes parked, sorted as the wavefront is), then
+   the main path's own sweep launch, the 8,192-ray chunk (64 blocks):
+   camera rays, scattered rays, and a late-bounce set whose last third of
+   blocks is all-dead; then ``synthetic:2000`` (4 tiles): the planned
+   sweeps on the identity plan, and the small sweeps against their plain
+   version and against those; median times by CUDA events (the kernels'
+   record keeps the scattered chunk's);
 4. the sun and shade kernels against their plain versions at 32,768 lanes:
    the first bounce of the main path's wavefront, and seeded random inputs
    that reach every branch, under the three quirk sets, with and without a
@@ -54,6 +59,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SLICE_SCENE = "arch:300000"
 SMALL_SCENE = "synthetic:2000"
 LAUNCH_RAYS = 1 << 15
+# The wavefront's chunk (integrator/wavefront.py CHUNK): the sweeps' launch
+# on the main path, 64 blocks; and the live share of the late-bounce set,
+# whose last third of blocks is all-dead.
+CHUNK_RAYS = 1 << 13
+LATE_LIVE = 2 / 3
 # Kernel agreement with the plain version (share of rays), and the relative
 # t agreement where the closest winners differ (a near tie).
 MIN_AGREE = 0.9999
@@ -89,9 +99,9 @@ STATS_SCENES = (("synthetic:262144", 1 << 17), ("arch:262144", 1 << 17))
 # arguments as demangled and as mangled, or None).
 CUDA_FUNCTIONS = {
     "exact_gate": ("exact_gate_kernel", None),
-    "closest": ("tile_sweep_kernel", ("<false, false>", "ILb0ELb0EE")),
-    "any": ("tile_sweep_kernel", ("<true, false>", "ILb1ELb0EE")),
-    "closest_stats": ("tile_sweep_kernel", ("<false, true>", "ILb0ELb1EE")),
+    "closest": ("closest_sweep_kernel", ("<false>", "ILb0E")),
+    "any": ("any_sweep_kernel", None),
+    "closest_stats": ("closest_sweep_kernel", ("<true>", "ILb1E")),
     "closest_small": ("small_sweep_kernel", ("<false>", "ILb0E")),
     "any_small": ("small_sweep_kernel", ("<true>", "ILb1E")),
     "sun": ("sun_kernel", None),
@@ -195,6 +205,31 @@ def time_kernel(timing, name, tag, kernel_fn, plain_fn, reps, work):
         f"({bound_by}: {work[0]:.4g} operations, {work[1]:.4g} bytes)")
 
 
+def check_rcp(device):
+    """The planned sweeps' branch-free reciprocal (``rcp_fast`` in
+    ``csrc/tile_sweep.cu``) against ``__frcp_rn`` on every float bit
+    pattern: it must differ nowhere it keeps its own result; where it sets
+    its slow flag the sweeps take ``__frcp_rn``.  Returns (patterns that
+    set the flag, those of them with exponent field 1..252, ms)."""
+    import torch
+
+    from ptx_torch.kernels import _build
+
+    out = torch.zeros(3, dtype=torch.int64, device=device)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    _build.launch(_build.load().ptx_rcp_check, out.data_ptr())
+    end.record()
+    end.synchronize()
+    bad, slow, slow_normal = out.tolist()
+    log(f"rcp_fast vs __frcp_rn on all 2^32 floats: {bad} differ where it keeps "
+        f"its result; {slow} set the slow flag ({slow_normal} of them with "
+        f"exponent field 1..252); {start.elapsed_time(end):.2f} ms")
+    if bad:
+        raise AssertionError(f"rcp_fast differs from __frcp_rn on {bad} floats")
+    return slow, slow_normal, start.elapsed_time(end)
+
+
 def camera_rays(fs, width, height, n, device):
     """The main path's first launch: pixels 0..n-1 of sample 0, sorted by
     the wavefront's ray key."""
@@ -207,10 +242,11 @@ def camera_rays(fs, width, height, n, device):
     return orig.contiguous(), dirn
 
 
-def scattered_rays(static, n, seed, device):
+def scattered_rays(static, n, seed, device, live=0.75):
     """Second-bounce-like rays: seeded origins inside the scene box, random
-    directions, a quarter of the lanes dead and parked, sorted dead-last by
-    the wavefront's ray key."""
+    directions, a share ``1 - live`` of the lanes dead and parked, sorted
+    dead-last by the wavefront's ray key (so the last blocks are all-dead,
+    as in a late bounce)."""
     import numpy as np
     import torch
 
@@ -221,7 +257,7 @@ def scattered_rays(static, n, seed, device):
     orig = lo + (hi - lo) * rng.random((n, 3))
     d = rng.normal(size=(n, 3))
     d /= np.linalg.norm(d, axis=1, keepdims=True)
-    keep = torch.as_tensor(rng.random(n) < 0.75, device=device)
+    keep = torch.as_tensor(rng.random(n) < live, device=device)
     orig = torch.as_tensor(orig, dtype=torch.float32, device=device)
     dirn = torch.as_tensor(d, dtype=torch.float32, device=device)
     orig, dirn = sorting.park(orig, dirn, keep, static)
@@ -268,18 +304,20 @@ def compare_winners(tag, fs, orig, dirn, got, want):
 
 
 def check_kernels(fs, static, ray_sets, label, timing, reps):
-    """Kernel vs plain version on the card for each (name, orig, dirn)."""
+    """Kernel vs plain version on the card, bit for bit, for each (name,
+    orig, dirn, timed): the gate, the closest sweep (t and tri) and the any
+    sweep.  A timed set is timed; the record keeps the last one's times."""
     import torch
 
     from ptx_torch import bench
     from ptx_torch.kernels import intersect_cuda as K
-    from ptx_torch.kernels.tiles import HIT_T, _pack_rays
 
     tiles, boxes = fs.ptiles, fs.pboxes
     errs = {}
-    for name, orig, dirn in ray_sets:
-        rays, _ = _pack_rays(orig, dirn)
+    for name, orig, dirn, timed in ray_sets:
+        rays, _ = K._pack_rays(orig, dirn)
         tag = f"{label}/{name}"
+        timed = timed and timing is not None
         if boxes.shape[0] > K.SMALL_TILES:
             g_k, n_k = K.exact_gate(rays, boxes)
             g_p, n_p = K._exact_gate(rays, boxes)
@@ -290,8 +328,9 @@ def check_kernels(fs, static, ray_sets, label, timing, reps):
                                      float((n_k - n_p).abs().max()))
             plan = K.sort_plan(g_k, n_k)
             log(f"{tag}: exact_gate == plain (bit for bit); "
-                f"{float(plan[1].float().mean()):.1f} tiles planned per block")
-            if timing is not None:
+                f"{float(plan[1].float().mean()):.1f} tiles planned per block, "
+                f"{int((plan[1] == 0).sum())} of {plan[1].shape[0]} blocks all-dead")
+            if timed:
                 nb, nt = g_k.shape
                 time_kernel(timing, "exact_gate", tag,
                             lambda: K.exact_gate(rays, boxes),
@@ -301,23 +340,24 @@ def check_kernels(fs, static, ray_sets, label, timing, reps):
         else:
             plan = K._plan(rays, boxes)
 
-        t_k, tri_k = K.closest_sweep(*plan, rays, tiles)
-        share, flips, err = compare_winners(
-            tag, fs, orig, dirn, (t_k, tri_k),
-            K._sweep(*plan, rays, tiles, any_mode=False))
-        errs["closest"] = max(errs.get("closest", 0.0), err)
-        log(f"{tag}: closest tri agrees on {share:.6f} of rays "
-            f"({flips} near-tie flips), {float((t_k < HIT_T).float().mean()):.3f} hit")
-
+        got = K.closest_sweep(*plan, rays, tiles)
+        want = K._sweep(*plan, rays, tiles, any_mode=False)
+        n_diff = [int(lane_diffs(a, b).sum()) for a, b in zip(got, want)]
+        if any(n_diff):
+            raise AssertionError(f"{tag}: closest differs from plain: lanes t "
+                                 f"{n_diff[0]}, tri {n_diff[1]}")
+        errs["closest"] = max(errs.get("closest", 0.0),
+                              float((got[0] - want[0]).abs().max()))
         a_k = K.any_sweep(*plan, rays, tiles)
         a_p = K._sweep(*plan, rays, tiles, any_mode=True)
-        a_share = float((a_k == a_p).float().mean())
-        if a_share < MIN_AGREE:
-            raise AssertionError(f"{tag}: any agrees on {a_share:.6f}")
+        if not torch.equal(a_k, a_p):
+            raise AssertionError(f"{tag}: any differs from plain on "
+                                 f"{int((a_k != a_p).sum())} rays")
         errs["any"] = max(errs.get("any", 0.0), float((a_k - a_p).abs().max()))
-        log(f"{tag}: any agrees on {a_share:.6f} of rays, "
+        log(f"{tag}: closest == plain (t, tri bit for bit), "
+            f"{float((got[0] < K.HIT_T).float().mean()):.3f} hit; any == plain, "
             f"{float(a_k.float().mean()):.3f} occluded")
-        if timing is not None:
+        if timed:
             visited = K._sweep(*plan, rays, tiles, False, stats=True)[2]
             _, a_visited, searched = K._sweep(*plan, rays, tiles, True, stats=True)
             time_kernel(timing, "closest", tag,
@@ -605,6 +645,7 @@ def main() -> int:
     _build.load()
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {_build.build_seconds:.1f} s)")
     print(_build.build_log, file=sys.stderr)
+    check_rcp(dev)
 
     # 3. traversal kernels vs plain versions at the slice's shapes
     cfg = R.RenderConfig(width=256, height=256, samples=4, bounces=4)
@@ -618,16 +659,24 @@ def main() -> int:
         f"+ pack {time.perf_counter() - t0:.1f} s")
     timing = {}
     scattered = scattered_rays(static, LAUNCH_RAYS, 7, dev)
+    # 32,768-ray launches (timed: scattered), then the main path's own
+    # sweep launch, the 8,192-ray chunk of 64 blocks (timed: camera, and
+    # last the scattered set, whose times go into the kernels' record).
     errs = check_kernels(fs, static, [
-        ("camera", *camera_rays(fs, 256, 256, LAUNCH_RAYS, dev)),
-        ("scattered", *scattered),
+        ("camera", *camera_rays(fs, 256, 256, LAUNCH_RAYS, dev), False),
+        ("scattered", *scattered, True),
+        ("late bounce chunk", *scattered_rays(static, CHUNK_RAYS, 9, dev,
+                                              live=LATE_LIVE), True),
+        ("camera chunk", *camera_rays(fs, 256, 256, CHUNK_RAYS, dev), True),
+        ("scattered chunk", *scattered_rays(static, CHUNK_RAYS, 7, dev), True),
     ], SLICE_SCENE, timing, reps=5)
     fs_s, static_s = R.ensure_accel(*R.load_scene(SMALL_SCENE), cfg, device=dev)
     small_rays = [
         ("camera", *camera_rays(fs_s, 256, 256, LAUNCH_RAYS, dev)),
         ("scattered", *scattered_rays(static_s, LAUNCH_RAYS, 8, dev)),
     ]
-    check_kernels(fs_s, static_s, small_rays, SMALL_SCENE, None, reps=0)
+    check_kernels(fs_s, static_s, [(*r, False) for r in small_rays],
+                  SMALL_SCENE, None, reps=0)
     errs.update(check_small(fs_s, small_rays, SMALL_SCENE, timing, reps=5))
 
     # 4. sun and shade kernels vs plain versions

@@ -47,6 +47,7 @@ _SIGNATURES = {
     "ptx_any_small": [_P, _P, _I, _I, _P, _P],
     "ptx_sun": [_P, _P],
     "ptx_shade": [_P, _I, _P],
+    "ptx_rcp_check": [_P, _P],
 }
 
 # Kernel launches per wrapper since the last reset_launches().

@@ -220,8 +220,9 @@ def _check_sweep_args(order, count, near, rays, tiles):
     _build.check(near, "near", torch.float32, (nb, n_tiles + 1))
     _build.check(rays, "rays", torch.float32, (nb * RB, 8))
     _build.check(tiles, "tiles", torch.float32, (n_tiles, 16, TT))
-    if tiles.data_ptr() % 16:
-        raise ValueError("tiles: not 16-byte aligned")
+    for t, name in ((rays, "rays"), (tiles, "tiles")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: not 16-byte aligned")
     return nb, n_tiles
 
 
@@ -244,8 +245,8 @@ def closest_sweep(order, count, near, rays, tiles):
 def closest_sweep_stats(order, count, near, rays, tiles):
     """The stats sweep (port of ``_closest_stats_kernel``): the closest
     sweep's ``(t_trunc [R_pad], tri [R_pad])`` and ``visited [nb]`` int32,
-    the tiles each block tested.  The count is of the port's own sweep,
-    which exits per tile where the Pallas kernel exits per group of 4
+    the tiles each block tested.  The count is of the port's own exit rule,
+    per tile where the Pallas kernel exits per group of 4
     (``csrc/tile_sweep.cu``, ``ptx_closest_stats``)."""
     if _build.on_cpu(order, count, near, rays, tiles):
         return _sweep(order, count, near, rays, tiles, any_mode=False, stats=True)

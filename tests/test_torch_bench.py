@@ -282,3 +282,34 @@ def test_sweep_work_and_bound_count_this_runs_data():
     ms, by = bench.bound(ops, nbytes, bench.CARD_PEAKS["h100 80gb hbm3"])
     assert by == "operations" and ms == pytest.approx(ops / 67e12 * 1e3)
     assert bench.bound(1.0, 3.35e12, (67e12, 3.35e12)) == (1e3, "bytes")
+
+
+# Work of the sweeps on the seeded plans of _rays(arch:2000, kind): planned
+# tiles, tiles the closest sweep's per-tile exit rule visits, tiles the any
+# sweep visits, and the rays it searches over those visits.
+PINNED_WORK = {
+    "camera": (205, 205, 205, 18315),
+    "cones": (262, 251, 212, 25401),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(PINNED_WORK))
+def test_sweep_work_is_pinned_on_a_seeded_plan(kind):
+    """The yardstick of the sweeps' bounds (chip_smoke.check_kernels,
+    bench.sweep_work) counts the work the inputs need under the plain
+    version's rules -- the closest sweep's unlagged per-tile exit, the any
+    sweep's searched rays -- never a kernel's own schedule; a change to the
+    rules or to the count shows here."""
+    _, fs_t, static = _scene("arch:2000")
+    rays, _ = tiles._pack_rays(*_rays(fs_t, static, kind))
+    plan = intersect_cuda._plan_tiles(rays, fs_t.pboxes)
+    visited = intersect_cuda._sweep(*plan, rays, fs_t.ptiles, False, stats=True)[2]
+    _, a_visited, searched = intersect_cuda._sweep(*plan, rays, fs_t.ptiles,
+                                                   True, stats=True)
+    _, c_visits, _, n_searched = PINNED_WORK[kind]
+    assert (int(plan[1].sum()), int(visited.sum()), int(a_visited.sum()),
+            int(searched.sum())) == PINNED_WORK[kind]
+    ops, _ = bench.sweep_work(plan, visited, bench.SWEEP_RAY_BYTES)
+    assert ops == c_visits * tiles.RB * tiles.TT * bench.BW_FLOPS
+    a_ops, _ = bench.sweep_work(plan, a_visited, 32 + 4, searched)
+    assert a_ops == n_searched * tiles.TT * bench.BW_FLOPS

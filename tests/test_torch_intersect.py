@@ -213,3 +213,52 @@ def test_brute_matches_jax_brute(spec):
     np.testing.assert_allclose(got[0].numpy()[m], np.asarray(ref[0])[m], rtol=1e-5)
     np.testing.assert_array_equal(intersect.brute_any(fs_t, orig, dirn).numpy(),
                                   np.asarray(jintersect.brute_any(jfs, jo, jd)))
+
+
+# --------------------------------------------------------------------------
+# The planned sweeps' argument checks (csrc/tile_sweep.cu runs only on the
+# card; the checks its wrappers make before a launch are Python and run here)
+# --------------------------------------------------------------------------
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` that starts 4 bytes past a 16-byte line."""
+    buf = torch.zeros(t.numel() + 4, dtype=t.dtype)
+    out = buf[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("case,error,match", [
+    ("order dtype", TypeError, "order"),
+    ("count shape", ValueError, "count"),
+    ("near shape", ValueError, "near"),
+    ("rays not contiguous", ValueError, "rays: not contiguous"),
+    ("rays misaligned", ValueError, "rays: not 16-byte aligned"),
+    ("tiles misaligned", ValueError, "tiles: not 16-byte aligned"),
+    ("tiles shape", ValueError, "tiles: shape"),
+])
+def test_sweep_args_are_checked(case, error, match):
+    fs, _, fs_t, static = _scene("arch:2000")
+    rays, _ = tiles._pack_rays(*_rays(fs_t, static, "scattered"))
+    order, count, near = intersect_cuda._plan_tiles(rays, fs_t.pboxes)
+    ptiles = fs_t.ptiles
+    assert intersect_cuda._check_sweep_args(order, count, near, rays, ptiles) == (
+        rays.shape[0] // tiles.RB, ptiles.shape[0])
+    args = dict(order=order, count=count, near=near, rays=rays, tiles=ptiles)
+    if case == "order dtype":
+        args["order"] = order.long()
+    elif case == "count shape":
+        args["count"] = count[:-1]
+    elif case == "near shape":
+        args["near"] = near[:, :-1].contiguous()
+    elif case == "rays not contiguous":
+        args["rays"] = rays.t().contiguous().t()
+    elif case == "rays misaligned":
+        args["rays"] = _misaligned(rays)
+    elif case == "tiles misaligned":
+        args["tiles"] = _misaligned(ptiles)
+    else:
+        args["tiles"] = ptiles[:, :12].contiguous()
+    with pytest.raises(error, match=match):
+        intersect_cuda._check_sweep_args(**args)

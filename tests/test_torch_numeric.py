@@ -61,6 +61,7 @@ import ptx_torch
 for mod in pkgutil.walk_packages(ptx_torch.__path__, "ptx_torch."):
     importlib.import_module(mod.name)
 import chip_smoke
+import ab_trees
 
 from ptx_torch import bench, render as R
 fs, static = R.load_scene("synthetic:2000")
