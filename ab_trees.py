@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""The port of several checkouts on one H100, in turns: the planned sweeps
-and the sample loop of each.
+"""The port of several checkouts on one H100, in turns: the tile plan, the
+planned and small sweeps and the sample loop of each.
 
-    python3 ab_trees.py NAME=DIR [NAME=DIR ...] [--rounds 1] [--sweeps-only]
-                        [--out FILE]
+    python3 ab_trees.py NAME=DIR [NAME=DIR ...] [--rounds 1]
+                        [--sweeps-only] [--out FILE]
 
 Each DIR is a checkout of this repository: an earlier commit unpacked with
 ``git archive``, or a copy with an edited source (for example another
@@ -12,13 +12,21 @@ per checkout in the order given, then one per checkout backward (A B B A
 for two).  A process puts DIR's ``ptx_torch`` first on ``sys.path``, builds
 its kernels in DIR and, on ``arch:300000``:
 
-* checks its closest, stats and any sweeps against DIR's plain version bit
-  for bit (t, tri, visited, hit) on the ray sets of ``chip_smoke.py``
-  (32,768 and 8,192 camera and scattered rays, and 8,192 late-bounce rays
-  whose last third of blocks is all-dead), then times each by CUDA events
-  over back-to-back launches (median of 3), beside the launch's bound
-  (``bench.sweep_work``: the plain version's visits and searched rays),
-  and the host time of one wrapper call (launch only, no synchronize);
+* checks its plan (``_plan_tiles``) against ``sort_plan(_exact_gate(...))``
+  and its closest, stats and any sweeps against DIR's plain version bit
+  for bit (order, count, near; t, tri, visited, hit) on the ray sets of
+  ``chip_smoke.py`` (32,768 and 8,192 camera and scattered rays, 8,192
+  late-bounce rays whose last third of blocks is all-dead, and the 30,720
+  camera rays of a 640x480 frame's launch), then times each by CUDA events
+  over back-to-back calls (median of 3), beside the bound
+  (``bench.sweep_work``: the plain version's visits and searched rays; the
+  plan's slab tests), and the host time of one wrapper call (launch only,
+  no synchronize); the plan also by ``torch.profiler``: its device kernels
+  per call and their device time;
+* on ``synthetic:2000`` (4 tiles), 32,768, 30,720 (a 640x480 frame's
+  launch) and 8,192 camera and scattered rays: the small sweeps' lanes that
+  differ from ``_small_sweep`` (t, tri, hit; reported, not raised, so an
+  earlier tree's count shows), timed as the sweeps are;
 * unless ``--sweeps-only``: runs the sample loop (256x256, 4 spp, 4
   bounces) with shader "xla" and "auto" in turns after a warm-up sample of
   each (paths/s of each pass), and profiles one sample of each shader
@@ -41,7 +49,9 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SCENE = "arch:300000"
+SMALL_SCENE = "synthetic:2000"
 KERNELS = ("closest", "closest_stats", "any")
+SMALL_KERNELS = ("closest_small", "any_small")
 
 
 def _smoke():
@@ -95,7 +105,7 @@ def host_us(fn, device, calls: int = 50) -> float:
     return t / calls * 1e6
 
 
-def ray_sets(S, fs, static, device, big: int, chunk: int):
+def ray_sets(S, fs, static, device, big: int, chunk: int, frame: int):
     return [
         (f"camera {big}", *S.camera_rays(fs, 256, 256, big, device)),
         (f"scattered {big}", *S.scattered_rays(static, big, 7, device)),
@@ -103,13 +113,85 @@ def ray_sets(S, fs, static, device, big: int, chunk: int):
         (f"scattered {chunk}", *S.scattered_rays(static, chunk, 7, device)),
         (f"late bounce {chunk}", *S.scattered_rays(static, chunk, 9, device,
                                                    live=S.LATE_LIVE)),
+        (f"frame camera {frame}", *S.camera_rays(fs, *S.FRAME, frame, device)),
     ]
 
 
+def small_sets(S, fs, static, device, big: int, chunk: int, frame: int):
+    return [
+        (f"camera {big}", *S.camera_rays(fs, 256, 256, big, device)),
+        (f"scattered {big}", *S.scattered_rays(static, big, 8, device)),
+        (f"frame camera {frame}", *S.camera_rays(fs, *S.FRAME, frame, device)),
+        (f"frame scattered {frame}", *S.scattered_rays(static, frame, 8, device)),
+        (f"camera {chunk}", *S.camera_rays(fs, 256, 256, chunk, device)),
+        (f"scattered {chunk}", *S.scattered_rays(static, chunk, 8, device)),
+    ]
+
+
+def small_report(S, fs, sets, device, timed: bool = True) -> dict:
+    """Per ray set on a scene of <= 4 tiles: the small sweeps' lanes that
+    differ from ``_small_sweep`` (t, tri; hit), the bound and (``timed``)
+    device ms per launch and host us per call."""
+    from ptx_torch.kernels import intersect_cuda as K
+
+    tiles = fs.ptiles
+    out = {}
+    for label, orig, dirn in sets:
+        rays, _ = K._pack_rays(orig, dirn)
+        calls = {"closest_small": lambda: K.closest_small(rays, tiles),
+                 "any_small": lambda: K.any_small(rays, tiles)}
+        want = K._small_sweep(rays, tiles, False)
+        diffs = [int(S.lane_diffs(a, b).sum())
+                 for a, b in zip(calls["closest_small"](), want)]
+        diffs.append(int((calls["any_small"]() != K._small_sweep(rays, tiles, True))
+                         .sum()))
+        work = S.small_work(rays, tiles)
+        row = {"rays": rays.shape[0], "differing_lanes": diffs, "kernels": {}}
+        for name in SMALL_KERNELS:
+            b_ms, b_by = S.bound(*work[name])
+            k = {"bound_ms": b_ms, "bound_by": b_by}
+            if timed:
+                k["ms"] = device_ms(calls[name], device)
+                k["host_us"] = host_us(calls[name], device)
+            row["kernels"][name] = k
+        out[label] = row
+    return out
+
+
+def plan_diffs(S, rays, boxes, plan) -> list:
+    """Blocks where the plan differs from ``sort_plan(_exact_gate(...))``:
+    [order, count, near]."""
+    from ptx_torch.kernels import intersect_cuda as K
+
+    want = K.sort_plan(*K._exact_gate(rays, boxes))
+    return [int(S.lane_diffs(a, b).sum()) for a, b in zip(plan, want)]
+
+
+def plan_row(S, rays, boxes, plan, device, timed: bool) -> dict:
+    """The plan's bound and (``timed``) the ms per ``_plan_tiles`` call by
+    CUDA events, its host us, and its device kernels and device us per
+    call (``torch.profiler``, the median of 3 profiles of 20 calls)."""
+    from ptx_torch.kernels import intersect_cuda as K
+
+    b_ms, b_by = S.bound(*S.plan_work(rays, boxes, plan))
+    row = {"bound_ms": b_ms, "bound_by": b_by}
+    if timed:
+        def call():
+            return K._plan_tiles(rays, boxes)
+
+        n, us = sorted((len(ev), sum(t for _, t in ev))
+                       for ev in (S.device_events(call, 20) for _ in range(3)))[1]
+        row.update(ms=device_ms(call, device), host_us=host_us(call, device),
+                   device_kernels=n / 20, device_us=us / 20)
+    return row
+
+
 def sweep_report(S, fs, sets, device, timed: bool = True) -> dict:
-    """Per ray set: the plan's counts and, for each planned sweep, its bound
-    and (``timed``) device ms per launch and host us per call.  Raises where
-    a kernel differs from the plain version."""
+    """Per ray set: the plan's counts and, for the plan and each planned
+    sweep, its bound and (``timed``) device ms per call and host us per
+    call (the plan also its profiled device kernels and device us per
+    call).  Raises where the plan or a kernel differs from the plain
+    version."""
     from ptx_torch import bench
     from ptx_torch.kernels import intersect_cuda as K
 
@@ -118,6 +200,10 @@ def sweep_report(S, fs, sets, device, timed: bool = True) -> dict:
     for label, orig, dirn in sets:
         rays, _ = K._pack_rays(orig, dirn)
         plan = K._plan_tiles(rays, fs.pboxes)
+        p_diffs = plan_diffs(S, rays, fs.pboxes, plan)
+        if any(p_diffs):
+            raise AssertionError(f"{label}: the plan differs from sort_plan(_exact_gate)"
+                                 f" on blocks (order, count, near) {p_diffs}")
         want_c = K._sweep(*plan, rays, tiles, False, stats=True)
         want_a, a_visited, searched = K._sweep(*plan, rays, tiles, True, stats=True)
         calls = {"closest": lambda: K.closest_sweep(*plan, rays, tiles),
@@ -140,6 +226,7 @@ def sweep_report(S, fs, sets, device, timed: bool = True) -> dict:
                "planned": int(count.sum()), "visited": int(want_c[2].sum()),
                "longest_walk": int(want_c[2].max()),
                "searched": int(searched.sum()), "kernels": {}}
+        row["plan"] = plan_row(S, rays, fs.pboxes, plan, device, timed)
         for name in KERNELS:
             b_ms, b_by = S.bound(*work[name])
             k = {"bound_ms": b_ms, "bound_by": b_by}
@@ -198,13 +285,17 @@ def worker(root: str, sweeps_only: bool) -> dict:
     dev = torch.device("cuda")
     _build.load()
     ptxas = [ln.strip() for ln in _build.build_log.splitlines()
-             if "sweep_kernel" in ln or "registers" in ln or "spill" in ln]
+             if "_kernel" in ln or "registers" in ln or "spill" in ln]
     cfg = R.RenderConfig(width=256, height=256, samples=4, bounces=4)
     fs_np, static_np = R.load_scene(SCENE)
     fs, static = R.ensure_accel(fs_np, static_np, cfg, device=dev)
-    sets = ray_sets(S, fs, static, dev, S.LAUNCH_RAYS, S.CHUNK_RAYS)
+    sizes = (S.LAUNCH_RAYS, S.CHUNK_RAYS, S.FRAME_RAYS)
+    sets = ray_sets(S, fs, static, dev, *sizes)
+    fs_s, static_s = R.ensure_accel(*R.load_scene(SMALL_SCENE), cfg, device=dev)
     rec = {"root": root, "ptxas": ptxas,
-           "sweeps": sweep_report(S, fs, sets, dev)}
+           "sweeps": sweep_report(S, fs, sets, dev),
+           "small": small_report(S, fs_s, small_sets(S, fs_s, static_s, dev, *sizes),
+                                 dev)}
     if not sweeps_only:
         rec.update(loop_report(S, fs, static, cfg, dev))
     return rec
@@ -223,9 +314,27 @@ def summary(name, runs) -> list:
         lines.append(f"  {label}: {row['blocks']} blocks ({row['all_dead_blocks']} "
                      f"all-dead), visited {row['visited']} of {row['planned']} "
                      f"planned, longest walk {row['longest_walk']}")
+        p = [r["sweeps"][label]["plan"] for r in runs]
+        ms, us = _median([x["ms"] for x in p]), _median([x["host_us"] for x in p])
+        b = row["plan"]["bound_ms"]
+        lines.append(f"    {'plan':14s} {ms:.4f} ms (bound {b:.4f}, "
+                     f"{100 * b / ms:.0f} %), host {us:.1f} us per call; "
+                     f"{_median([x['device_kernels'] for x in p]):.0f} device "
+                     f"kernels, {_median([x['device_us'] for x in p]):.1f} device "
+                     f"us per call")
         for k in KERNELS:
             ms = _median([r["sweeps"][label]["kernels"][k]["ms"] for r in runs])
             us = _median([r["sweeps"][label]["kernels"][k]["host_us"] for r in runs])
+            b = row["kernels"][k]["bound_ms"]
+            lines.append(f"    {k:14s} {ms:.4f} ms (bound {b:.4f}, "
+                         f"{100 * b / ms:.0f} %), host {us:.1f} us per call")
+    for label, row in runs[0]["small"].items():
+        lines.append(f"  {SMALL_SCENE} {label}: differing lanes (t, tri, hit) "
+                     + ", ".join(str(r["small"][label]["differing_lanes"])
+                                 for r in runs))
+        for k in SMALL_KERNELS:
+            ms = _median([r["small"][label]["kernels"][k]["ms"] for r in runs])
+            us = _median([r["small"][label]["kernels"][k]["host_us"] for r in runs])
             b = row["kernels"][k]["bound_ms"]
             lines.append(f"    {k:14s} {ms:.4f} ms (bound {b:.4f}, "
                          f"{100 * b / ms:.0f} %), host {us:.1f} us per call")

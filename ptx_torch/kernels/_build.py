@@ -39,7 +39,7 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "ptx_exact_gate": [_P, _P, _I, _I, _P, _P, _P],
+    "ptx_tile_plan": [_P, _P, _I, _I, _P, _P, _P, _P],
     "ptx_closest": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
     "ptx_closest_stats": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
     "ptx_any": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
@@ -50,7 +50,8 @@ _SIGNATURES = {
     "ptx_rcp_check": [_P, _P],
 }
 
-# Kernel launches per wrapper since the last reset_launches().
+# Kernel launches per wrapper since the last reset_launches() ("exact_gate":
+# the plan kernel, which replaces the JAX package's exact gate kernel).
 LAUNCHES = {
     "exact_gate": 0, "closest": 0, "any": 0, "closest_small": 0,
     "any_small": 0, "sun": 0, "shade": 0, "closest_stats": 0,

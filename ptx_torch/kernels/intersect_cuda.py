@@ -1,9 +1,10 @@
-"""The tile traversal: five hand-written CUDA kernels and their plain torch
+"""The tile traversal: hand-written CUDA kernels and their plain torch
 versions (port of the kernels and wrappers of
 ``ptx/kernels/intersect_pallas.py``).
 
-* :func:`exact_gate` - ``csrc/exact_gate.cu``, plain version
-  :func:`_exact_gate`: per-[ray block x tile] gate and least entry distance.
+* :func:`exact_plan` - ``csrc/tile_plan.cu``, plain version
+  ``sort_plan(_exact_gate(...))``: the exact per-[ray block x tile] gate
+  and its per-block sort, the plan ``(order, count, near)``, in one launch.
 * :func:`closest_sweep` / :func:`any_sweep` - ``csrc/tile_sweep.cu``, plain
   version :func:`_sweep`: each block's planned tiles front to back, the
   Baldwin-Weber test and the packed-min key.
@@ -58,9 +59,10 @@ _ONE_EPS = float(np.float32(1.0 + 1.0e-4))
 
 
 def _exact_gate(rays, boxes, max_elems: int = 1 << 22):
-    """Plain version of ``csrc/exact_gate.cu``: exact per-ray slab tests
-    reduced to the block level.  Returns ``(gated [B, T] bool,
-    near [B, T] float32)``.  Runs ``max_elems`` ray-box pairs at a time."""
+    """The exact gate (the JAX package's ``_exact_gate``): per-ray slab
+    tests reduced to the block level.  Returns ``(gated [B, T] bool,
+    near [B, T] float32)``; with :func:`sort_plan`, the plain version of
+    ``csrc/tile_plan.cu``.  Runs ``max_elems`` ray-box pairs at a time."""
     nb = rays.shape[0] // RB
     n_tiles = boxes.shape[0]
     lo, hi = boxes[None, :, 0:3], boxes[None, :, 3:6]
@@ -88,35 +90,38 @@ def _exact_gate(rays, boxes, max_elems: int = 1 << 22):
     return gated, near
 
 
-def exact_gate(rays, boxes):
-    """Per-[128-ray block x tile] (gated, least entry distance): the kernel
-    for CUDA tensors, :func:`_exact_gate` for CPU tensors."""
+def exact_plan(rays, boxes):
+    """The plan ``(order [B, T] int32, count [B] int32, near [B, T+1]
+    float32)`` of a scene of at most FRUSTUM_PLAN_TILES tiles: one kernel
+    launch for CUDA tensors (counted as ``"exact_gate"``, the kernel it
+    replaces), ``sort_plan(_exact_gate(...))`` for CPU tensors."""
     if _build.on_cpu(rays, boxes):
-        return _exact_gate(rays, boxes)
+        return sort_plan(*_exact_gate(rays, boxes))
     nb, n_tiles = rays.shape[0] // RB, boxes.shape[0]
+    if not 0 < n_tiles <= FRUSTUM_PLAN_TILES:
+        raise ValueError(f"{n_tiles} tiles: the exact plan takes "
+                         f"1..{FRUSTUM_PLAN_TILES}")
     _build.check(rays, "rays", torch.float32, (nb * RB, 8))
     _build.check(boxes, "boxes", torch.float32, (n_tiles, 8))
-    if nb >= 65536:
-        raise ValueError(f"{rays.shape[0]} rays: at most 65535 blocks per launch")
-    gated = torch.empty((nb, n_tiles), dtype=torch.bool, device=rays.device)
-    near = torch.empty((nb, n_tiles), dtype=torch.float32, device=rays.device)
-    if nb and n_tiles:
-        _build.launch(_build.load().ptx_exact_gate, rays.data_ptr(),
-                      boxes.data_ptr(), nb, n_tiles, gated.data_ptr(),
-                      near.data_ptr())
+    order = torch.empty((nb, n_tiles), dtype=torch.int32, device=rays.device)
+    count = torch.empty((nb,), dtype=torch.int32, device=rays.device)
+    near = torch.empty((nb, n_tiles + 1), dtype=torch.float32, device=rays.device)
+    if nb:
+        _build.launch(_build.load().ptx_tile_plan, rays.data_ptr(),
+                      boxes.data_ptr(), nb, n_tiles, order.data_ptr(),
+                      count.data_ptr(), near.data_ptr())
         _build.LAUNCHES["exact_gate"] += 1
-    return gated, near
+    return order, count, near
 
 
 def _plan_tiles(rays, boxes):
     """The block traversal plan ``(order, count, near)`` of
-    :func:`ptx_torch.kernels.tiles.sort_plan`: the exact gate up to
-    FRUSTUM_PLAN_TILES tiles, the conservative frustum gate above."""
+    :func:`ptx_torch.kernels.tiles.sort_plan`: the exact plan up to
+    FRUSTUM_PLAN_TILES tiles, the conservative frustum gate and
+    :func:`sort_plan` above."""
     if boxes.shape[0] > FRUSTUM_PLAN_TILES:
-        gated, near_blk = _frustum_gate(rays, boxes)
-    else:
-        gated, near_blk = exact_gate(rays, boxes)
-    return sort_plan(gated, near_blk)
+        return sort_plan(*_frustum_gate(rays, boxes))
+    return exact_plan(rays, boxes)
 
 
 def _plan(rays, boxes):
@@ -313,8 +318,9 @@ def _check_small_args(rays, tiles):
         raise ValueError(f"{n_tiles} tiles: the small sweep takes 1..{SMALL_TILES}")
     _build.check(rays, "rays", torch.float32, (nb * RB, 8))
     _build.check(tiles, "tiles", torch.float32, (n_tiles, 16, TT))
-    if tiles.data_ptr() % 16:
-        raise ValueError("tiles: not 16-byte aligned")
+    for t, name in ((rays, "rays"), (tiles, "tiles")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: not 16-byte aligned")
     return nb, n_tiles
 
 

@@ -179,6 +179,46 @@ def test_small_sweep_matches_pallas(kind):
     assert torch.equal(hit, intersect_cuda._sweep(*plan, rays, fs_t.ptiles, True))
 
 
+@pytest.mark.parametrize("kind", ["camera", "scattered"])
+def test_small_sweep_duplicated_tile_keeps_the_earlier(kind):
+    """A copy of the 4-tile scene whose tile 1 duplicates tile 0: every key
+    of tile 1 ties with tile 0's, and the small sweeps keep the earlier
+    tile, in the port's wrappers (their plain version here) as in
+    ``_closest_small_kernel`` / ``_any_small_kernel`` (interpret mode)."""
+    fs, _, fs_t, static = _scene("synthetic:2000")
+    ptiles = fs_t.ptiles.clone()
+    ptiles[1] = ptiles[0]
+    rays, r_pad = tiles._pack_rays(*_rays(fs_t, static, kind))
+    jr, jt = jnp.asarray(rays.numpy()), jnp.asarray(ptiles.numpy())
+    t, tri = intersect_cuda.closest_small(rays, ptiles)
+    hit = intersect_cuda.any_small(rays, ptiles)
+    t_p, tri_p = intersect_cuda._small_sweep(rays, ptiles, any_mode=False)
+    assert torch.equal(t, t_p) and torch.equal(tri, tri_p)
+    assert torch.equal(hit, intersect_cuda._small_sweep(rays, ptiles, True))
+    ref_t, ref_tri = (np.asarray(x)[:, 0] for x in _jax_small(
+        kp._closest_small_kernel, jr, jt,
+        (jax.ShapeDtypeStruct((r_pad, 1), jnp.float32),
+         jax.ShapeDtypeStruct((r_pad, 1), jnp.int32))))
+    ref_hit = np.asarray(_jax_small(
+        kp._any_small_kernel, jr, jt,
+        (jax.ShapeDtypeStruct((r_pad, 1), jnp.int32),)))[:, 0]
+    is_hit = t.numpy() < tiles.HIT_T
+    from_tile0 = (tri.numpy() // tiles.TT == 0) & is_hit
+    assert from_tile0.mean() > 0.01
+    # No winner lies in the duplicate, in either package.
+    assert not ((tri.numpy() // tiles.TT == 1) & is_hit).any()
+    assert not ((ref_tri // tiles.TT == 1) & (ref_t < tiles.HIT_T)).any()
+    np.testing.assert_array_equal(is_hit, ref_t < tiles.HIT_T)
+    same = (tri.numpy() == ref_tri) | ~is_hit
+    assert (~same).mean() <= MAX_FLIP_SHARE
+    np.testing.assert_array_equal(hit.numpy(), ref_hit)
+    # Against the scene without the duplicate: the same hits; a winner in
+    # tile 0 there stays; one that was in tile 1 is now tile 0's lane.
+    t_o, tri_o = intersect_cuda._small_sweep(rays, fs_t.ptiles, any_mode=False)
+    keep = (tri_o // tiles.TT != 1) & (t_o < tiles.HIT_T)
+    assert torch.equal(tri[keep], tri_o[keep]) and torch.equal(t[keep], t_o[keep])
+
+
 def test_small_wrappers_run_plain_on_cpu():
     fs, _, fs_t, static = _scene("synthetic:2000")
     rays, _ = tiles._pack_rays(*_rays(fs_t, static, "scattered"))

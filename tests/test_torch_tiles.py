@@ -87,16 +87,79 @@ def test_exact_gate_bit_identical(arch):
 
 
 def test_exact_gate_wrapper_runs_plain_on_cpu(arch):
+    """The plan wrapper (the kernel that replaces the exact gate and its
+    sort) runs ``sort_plan(_exact_gate(...))`` on CPU tensors, counts no
+    launch, and raises on a device it has no kernel for."""
     fs, static = arch
     rays, _ = tiles._pack_rays(*_ray_sets(fs, static)[0])
     _build.reset_launches()
-    got = intersect_cuda.exact_gate(rays, _t(fs.pboxes))
-    ref = intersect_cuda._exact_gate(rays, _t(fs.pboxes))
+    got = intersect_cuda.exact_plan(rays, _t(fs.pboxes))
+    ref = tiles.sort_plan(*intersect_cuda._exact_gate(rays, _t(fs.pboxes)))
     assert _build.LAUNCHES["exact_gate"] == 0
     for g, r in zip(got, ref):
-        assert torch.equal(g, r)
+        assert g.dtype == r.dtype and torch.equal(g, r)
+    assert torch.equal(intersect_cuda._plan_tiles(rays, _t(fs.pboxes))[0], got[0])
     with pytest.raises(ValueError):
-        intersect_cuda.exact_gate(rays.to("meta"), _t(fs.pboxes).to("meta"))
+        intersect_cuda.exact_plan(rays.to("meta"), _t(fs.pboxes).to("meta"))
+
+
+def _keyed_plan(gated, near):
+    """The plan as ``csrc/tile_plan.cu`` writes it from the gate: the key of
+    tile t is (bits(near) << 32) | (t << 1) | !gated; a key's slot is its
+    rank (the keys below it); the order slots past count repeat the tile at
+    rank max(count - 1, 0)."""
+    nb, n_tiles = gated.shape
+    keys = ((near.view(np.uint32).astype(np.uint64) << np.uint64(32))
+            | (np.arange(n_tiles, dtype=np.uint64) << np.uint64(1))
+            | (~gated).astype(np.uint64))
+    count = gated.sum(1).astype(np.int32)
+    order = np.empty((nb, n_tiles), np.int32)
+    near_out = np.empty((nb, n_tiles + 1), np.float32)
+    near_out[:, n_tiles] = tiles.INF
+    for b in range(nb):
+        k = keys[b]
+        rank = np.zeros(n_tiles, np.int64)
+        for c in range(0, n_tiles, 512):  # (keys below k[i]) in chunks
+            rank += (k[None, c:c + 512] < k[:, None]).sum(1)
+        assert np.array_equal(np.sort(rank), np.arange(n_tiles))
+        tile = ((k & np.uint64(0xFFFFFFFF)) >> np.uint64(1)).astype(np.int32)
+        near_out[b, rank] = (k >> np.uint64(32)).astype(np.uint32).view(np.float32)
+        last = tile[rank == max(count[b] - 1, 0)][0]
+        order[b, rank] = np.where(rank < count[b], tile, last)
+    return order, count, near_out
+
+
+@pytest.mark.parametrize("seed,n_tiles,p_gated,palette", [
+    (0, 4096, 0.5, "ties"),
+    (1, 534, 0.0, "random"),
+    (2, 1, 1.0, "ties"),
+    (3, 4095, 0.9, "random"),
+    (4, 534, 0.3, "ties"),
+    (5, 700, 1.0, "random"),
+    (6, 1024, 0.9, "ties"),
+    (7, 37, 0.3, "random"),
+])
+def test_keyed_sort_equals_sort_plan(seed, n_tiles, p_gated, palette):
+    """The plan kernel's premise: placing the distinct keys (bits(near) << 32)
+    | (tile << 1) | !gated at their ranks gives ``sort_plan``'s order, count
+    and near (its stable sort), with ties at 0, at 3e38 (ungated tiles, and
+    gated ones entered at 3e38) and at +inf, rows with no gated tile, and
+    any T up to FRUSTUM_PLAN_TILES."""
+    rng = np.random.default_rng(seed)
+    nb = 3
+    gated = rng.random((nb, n_tiles)) < p_gated
+    gated[0] = False  # a block that enters no tile
+    if palette == "ties":
+        values = np.array([0.0, 0.0, 0.5, 1.0, 7.25, tiles.INF, np.inf], np.float32)
+        near = values[rng.integers(0, values.size, (nb, n_tiles))]
+    else:
+        near = (rng.random((nb, n_tiles)) * 100.0).astype(np.float32)
+    near = np.where(gated, near, np.float32(tiles.INF)).astype(np.float32)
+    got = _keyed_plan(gated, near)
+    ref = tiles.sort_plan(_t(gated), _t(near))
+    for g, r in zip(got, ref):
+        assert g.dtype == r.numpy().dtype
+        np.testing.assert_array_equal(g, r.numpy())
 
 
 def test_frustum_gate_matches(arch):
