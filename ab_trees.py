@@ -3,7 +3,7 @@
 planned and small sweeps and the sample loop of each.
 
     python3 ab_trees.py NAME=DIR [NAME=DIR ...] [--rounds 1]
-                        [--sweeps-only] [--out FILE]
+                        [--sweeps-only | --loop-only] [--out FILE]
 
 Each DIR is a checkout of this repository: an earlier commit unpacked with
 ``git archive``, or a copy with an edited source (for example another
@@ -27,6 +27,7 @@ its kernels in DIR and, on ``arch:300000``:
   launch) and 8,192 camera and scattered rays: the small sweeps' lanes that
   differ from ``_small_sweep`` (t, tri, hit; reported, not raised, so an
   earlier tree's count shows), timed as the sweeps are;
+  (``--loop-only`` skips the two items above);
 * unless ``--sweeps-only``: runs the sample loop (256x256, 4 spp, 4
   bounces) with shader "xla" and "auto" in turns after a warm-up sample of
   each (paths/s of each pass), and profiles one sample of each shader
@@ -269,7 +270,7 @@ def loop_report(S, fs, static, cfg, device, passes=("xla", "auto", "auto", "xla"
     return {"loop": loop, "profile": profiles}
 
 
-def worker(root: str, sweeps_only: bool) -> dict:
+def worker(root: str, sweeps_only: bool, loop_only: bool = False) -> dict:
     root = os.path.abspath(root)
     sys.path[:] = [root] + [p for p in sys.path
                             if os.path.abspath(p or ".") not in (HERE, root)]
@@ -289,13 +290,14 @@ def worker(root: str, sweeps_only: bool) -> dict:
     cfg = R.RenderConfig(width=256, height=256, samples=4, bounces=4)
     fs_np, static_np = R.load_scene(SCENE)
     fs, static = R.ensure_accel(fs_np, static_np, cfg, device=dev)
-    sizes = (S.LAUNCH_RAYS, S.CHUNK_RAYS, S.FRAME_RAYS)
-    sets = ray_sets(S, fs, static, dev, *sizes)
-    fs_s, static_s = R.ensure_accel(*R.load_scene(SMALL_SCENE), cfg, device=dev)
-    rec = {"root": root, "ptxas": ptxas,
-           "sweeps": sweep_report(S, fs, sets, dev),
-           "small": small_report(S, fs_s, small_sets(S, fs_s, static_s, dev, *sizes),
-                                 dev)}
+    rec = {"root": root, "ptxas": ptxas}
+    if not loop_only:
+        sizes = (S.LAUNCH_RAYS, S.CHUNK_RAYS, S.FRAME_RAYS)
+        sets = ray_sets(S, fs, static, dev, *sizes)
+        fs_s, static_s = R.ensure_accel(*R.load_scene(SMALL_SCENE), cfg, device=dev)
+        rec["sweeps"] = sweep_report(S, fs, sets, dev)
+        rec["small"] = small_report(
+            S, fs_s, small_sets(S, fs_s, static_s, dev, *sizes), dev)
     if not sweeps_only:
         rec.update(loop_report(S, fs, static, cfg, dev))
     return rec
@@ -310,7 +312,7 @@ def _smi() -> str:
 def summary(name, runs) -> list:
     """Lines of one checkout's medians over its processes."""
     lines = [f"{name}: {len(runs)} processes"]
-    for label, row in runs[0]["sweeps"].items():
+    for label, row in runs[0].get("sweeps", {}).items():
         lines.append(f"  {label}: {row['blocks']} blocks ({row['all_dead_blocks']} "
                      f"all-dead), visited {row['visited']} of {row['planned']} "
                      f"planned, longest walk {row['longest_walk']}")
@@ -328,7 +330,7 @@ def summary(name, runs) -> list:
             b = row["kernels"][k]["bound_ms"]
             lines.append(f"    {k:14s} {ms:.4f} ms (bound {b:.4f}, "
                          f"{100 * b / ms:.0f} %), host {us:.1f} us per call")
-    for label, row in runs[0]["small"].items():
+    for label, row in runs[0].get("small", {}).items():
         lines.append(f"  {SMALL_SCENE} {label}: differing lanes (t, tri, hit) "
                      + ", ".join(str(r["small"][label]["differing_lanes"])
                                  for r in runs))
@@ -353,11 +355,14 @@ def main() -> int:
     ap.add_argument("trees", nargs="*", metavar="NAME=DIR")
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--sweeps-only", action="store_true")
+    ap.add_argument("--loop-only", action="store_true")
     ap.add_argument("--out", help="also write the JSON record here")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.sweeps_only and args.loop_only:
+        ap.error("--sweeps-only and --loop-only exclude each other")
     if args.worker:
-        print(json.dumps(worker(args.worker, args.sweeps_only)))
+        print(json.dumps(worker(args.worker, args.sweeps_only, args.loop_only)))
         return 0
 
     import torch
@@ -376,6 +381,8 @@ def main() -> int:
         cmd = [sys.executable, os.path.abspath(__file__), "--worker", root]
         if args.sweeps_only:
             cmd.append("--sweeps-only")
+        if args.loop_only:
+            cmd.append("--loop-only")
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         sys.stderr.write(proc.stderr)

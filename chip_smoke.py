@@ -23,15 +23,27 @@ Phases (any failure raises, and the exit code is then non-zero):
    sweeps on the identity plan, and the small sweeps against their plain
    version bit for bit (also on a copy whose tile 1 duplicates tile 0) and
    against the identity-plan sweeps (near-tie flips allowed); median times
-   by CUDA events (the kernels' record keeps the scattered chunk's);
-4. the sun and shade kernels against their plain versions at 32,768 lanes,
-   bit for bit on every lane of every output:
-   the first bounce of the main path's wavefront, and seeded random inputs
-   that reach every branch, under the three quirk sets, with and without a
-   sun;
+   by CUDA events (the kernels' record keeps the scattered chunk's); then
+   the device tile pack (``tiles.pack_tris``) against the attached host
+   pack, bit for bit; then the first scene above FRUSTUM_PLAN_TILES
+   (``synthetic:2200000``, 4,297 tiles; its load, host BVH build and pack
+   timed): the device pack, and on 16,384 camera rays and an 8,192-ray
+   scattered chunk the frustum plan's closest and any sweeps against their
+   plain versions bit for bit and against the brute sweep (every tile in
+   order; near-tie flips allowed);
+4. the shadow-ray setup (``ptx_shadow_rays``: the sun sample, the shadow
+   rays parked and packed) against its plain version on every lane and
+   row, pad rows included, with compaction on and off, at 32,768, 8,192
+   and 8,000 lanes, and its device kernels per call (1); the shade kernel
+   against its plain version at 32,768 lanes, bit for bit on every lane of
+   every output; both on the first bounce of the main path's wavefront and
+   on seeded random inputs that reach every branch, the shade kernel under
+   the three quirk sets, with and without a sun; the setup timed at 32,768
+   and 8,192 lanes (the record keeps the chunk's);
 5. the main path: ``ptx_torch.render.render`` on ``arch:300000`` at
    256x256, 4 spp, 4 bounces with the default config (shader "auto", the
-   fused kernels), with every kernel's launch count; then the sample loop
+   fused kernels), with every kernel's launch count (one shadow-ray setup
+   per shade step); then the sample loop
    with shader "xla" and "auto" in turns (paths/s, device kernels per
    sample), and the two images against each other; then 64x64, 2 spp
    through the kernels against the plain brute-force intersector;
@@ -42,7 +54,9 @@ Phases (any failure raises, and the exit code is then non-zero):
    for bit on all three outputs, and its t and tri against
    ``ptx_closest``'s, with ``visited <= count`` on every block: the bench
    roofline's 131,072 camera rays on ``synthetic:262144`` and
-   ``arch:262144`` and the 32,768 scattered rays on ``arch:300000``;
+   ``arch:262144`` and the 32,768 scattered rays on ``arch:300000`` (timed;
+   its device time by CUDA events over back-to-back calls when the profiler
+   holds no event of it);
 9. the bench path: ``ptx_torch.bench.run_bench`` with the headline, the two
    tile-traversal rooflines and the brute roofline, its JSON on a line of
    its own, with every kernel's launch count.
@@ -76,6 +90,12 @@ LATE_LIVE = 2 / 3
 # a multiple of the chunk, so the wavefront steps them whole (240 blocks).
 FRAME = (640, 480)
 FRAME_RAYS = 30720
+# Lanes of a shadow-ray setup check whose last 64 rows are padding.
+PARTIAL_LANES = 8000
+# The first scene above FRUSTUM_PLAN_TILES = 4096 tiles (4,297), and the
+# frame of its camera rays (128 blocks).
+BIG_SCENE = "synthetic:2200000"
+BIG_FRAME = (128, 128)
 # The small sweeps' agreement with the planned sweeps on the identity plan,
 # whose exit rule may stop a block early (share of rays), and the relative
 # t agreement where the closest winners differ (a near tie).  Every kernel
@@ -118,7 +138,7 @@ CUDA_FUNCTIONS = {
     "closest_stats": ("closest_sweep_kernel", ("<true>", "ILb1E")),
     "closest_small": ("small_sweep_kernel", ("<false>", "ILb0E")),
     "any_small": ("small_sweep_kernel", ("<true>", "ILb1E")),
-    "sun": ("sun_kernel", None),
+    "sun": ("shadow_rays_kernel", None),
     "shade": ("shade_kernel", ("<true>", "ILb1E")),
 }
 # Operations per unit of work, for the bounds (csrc comments): a ray-box
@@ -156,6 +176,32 @@ def median_ms(fn, reps: int, warmup: int = 2) -> float:
     return times[len(times) // 2]
 
 
+def graph_ms(fn, calls: int = 20, reps: int = 3) -> float:
+    """Device ms per call of ``fn``: ``calls`` calls captured in one CUDA
+    graph, replayed between two CUDA events (median of ``reps``), so no
+    host time lies between the launches."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    times.sort()
+    return times[len(times) // 2]
+
+
 def device_events(fn, calls: int = 1):
     """``[(name, us)]`` of the device kernels of ``calls`` calls of ``fn``
     in a ``torch.profiler`` trace, after one call to warm up (the trace can
@@ -174,31 +220,43 @@ def device_events(fn, calls: int = 1):
             if e.device_type == DeviceType.CUDA]
 
 
-def device_ms(name, fn, reps: int = 5):
+def device_ms(name, fn, reps: int = 5, tries: int = 3):
     """Device time per launch of kernel ``name`` alone, without the host
-    time of its wrapper: the mean over the launches the trace holds; None
-    if it holds none."""
+    time of its wrapper: the mean over the launches a trace holds.  The
+    trace can miss events, so one that holds none is taken again, up to
+    ``tries`` times; None if none holds one."""
     base, marks = CUDA_FUNCTIONS[name]
-    us = [t for n, t in device_events(fn, reps)
-          if base in n and (marks is None or any(m in n for m in marks))]
-    return sum(us) / 1e3 / len(us) if us else None
+    for _ in range(tries):
+        us = [t for n, t in device_events(fn, reps)
+              if base in n and (marks is None or any(m in n for m in marks))]
+        if us:
+            return sum(us) / 1e3 / len(us)
+    return None
 
 
-def plan_kernels(tag, call, calls: int = 10, tries: int = 3) -> float:
-    """Device kernels per plan call in a profile of ``calls`` calls: every
-    CUDA event counts.  The trace can miss an event, so a profile that holds
-    no plan kernel is taken again, up to ``tries`` times; raises if none
-    holds one, or if a call ran more than two kernels."""
-    base = CUDA_FUNCTIONS["exact_gate"][0]
+def kernels_per_call(name, call, calls: int = 10, tries: int = 3) -> float:
+    """Device kernels per call of ``call`` in a profile of ``calls`` calls:
+    every CUDA event counts.  The trace can miss events (never add one), so
+    ``tries`` profiles are taken and the largest count of those that hold
+    a kernel ``name`` is kept; raises if none holds one."""
+    base = CUDA_FUNCTIONS[name][0]
+    counts = []
     for _ in range(tries):
         names = [n for n, _ in device_events(call, calls)]
         if any(base in n for n in names):
-            n_dev = len(names) / calls
-            if n_dev > 2:
-                raise AssertionError(f"{tag}: the plan ran {n_dev:g} device "
-                                     f"kernels per call")
-            return n_dev
-    raise AssertionError(f"{tag}: no {base} in {tries} profiles of the plan")
+            counts.append(len(names) / calls)
+    if not counts:
+        raise AssertionError(f"no {base} in {tries} profiles of {calls} calls")
+    return max(counts)
+
+
+def plan_kernels(tag, call) -> float:
+    """Device kernels per plan call (:func:`kernels_per_call`); raises if a
+    call ran more than two."""
+    n_dev = kernels_per_call("exact_gate", call)
+    if n_dev > 2:
+        raise AssertionError(f"{tag}: the plan ran {n_dev:g} device kernels per call")
+    return n_dev
 
 
 def plan_work(rays, boxes, plan):
@@ -256,13 +314,14 @@ def time_kernel(timing, name, tag, kernel_fn, plain_fn, reps, work):
     plain version, the kernel's own device time, and the bound of the
     launch's ``work`` = (operations, bytes)."""
     ms, plain = median_ms(kernel_fn, reps), median_ms(plain_fn, reps)
-    dev = device_ms(name, kernel_fn, reps)
+    dev, dev_by = device_ms(name, kernel_fn, reps), "profiler"
+    if dev is None:
+        dev, dev_by = graph_ms(kernel_fn), "a CUDA graph of 20 calls"
     bound_ms, bound_by = bound(*work)
-    timing[name] = dict(ms=ms, plain_ms=plain, device_ms=dev, bound_ms=bound_ms,
-                        bound_by=bound_by)
-    log(f"{tag}: {name} kernel {ms:.3f} ms per call "
-        f"({'not measured' if dev is None else f'{dev:.4f} ms'} on the device "
-        f"alone), plain torch {plain:.3f} ms, bound {bound_ms:.4f} ms "
+    timing[name] = dict(ms=ms, plain_ms=plain, device_ms=dev, device_by=dev_by,
+                        bound_ms=bound_ms, bound_by=bound_by)
+    log(f"{tag}: {name} kernel {ms:.4f} ms per call ({dev:.4f} ms on the device "
+        f"alone, by {dev_by}), plain torch {plain:.3f} ms, bound {bound_ms:.5f} ms "
         f"({bound_by}: {work[0]:.4g} operations, {work[1]:.4g} bytes)")
 
 
@@ -560,6 +619,88 @@ def check_stats(label, fs, orig, dirn, timing, reps):
     return float((got[0] - want[0]).abs().max())
 
 
+def check_pack(label, fs):
+    """The device pack (``tiles.pack_tris`` on the scene's tensors on the
+    card) against the host pack attached to the scene (``attach_tiles``,
+    numpy), bit for bit on every tile and box.  Returns its ms by CUDA
+    events (median of 3)."""
+    from ptx_torch.kernels import tiles
+
+    got = tiles.pack_tris(fs)
+    n_diff = [int(lane_diffs(a, b).sum())
+              for a, b in zip(got, (fs.ptiles, fs.pboxes))]
+    ms = median_ms(lambda: tiles.pack_tris(fs), 3, warmup=0)
+    log(f"{label}: pack_tris on the card vs attach_tiles: differing tiles "
+        f"{n_diff[0]}, boxes {n_diff[1]} of {fs.ptiles.shape[0]}; {ms:.2f} ms")
+    if any(n_diff):
+        raise AssertionError(f"{label}: the device pack differs from attach_tiles")
+    return ms
+
+
+def check_above_frustum(cfg, device):
+    """The first card check above FRUSTUM_PLAN_TILES: ``BIG_SCENE`` (load,
+    host BVH build, pack timed), the device pack against the host one, and
+    on camera rays of a small frame and a scattered chunk, the frustum plan
+    with the closest and any sweep kernels against their plain versions
+    bit for bit, then against the brute sweep (every tile in tile order,
+    ``_small_sweep``): closest winners under the near-tie allowance
+    (:func:`compare_winners`), any hit on >= MIN_AGREE of rays."""
+    from ptx_torch import render as R
+    from ptx_torch.accel import bvh, native
+    from ptx_torch.kernels import intersect_cuda as K
+
+    t0 = time.perf_counter()
+    fs_np, static = R.load_scene(BIG_SCENE)
+    t_load = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fs_np, static = bvh.build_bvh(fs_np, static)
+    t_bvh = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fs, static = R.ensure_accel(fs_np, static, cfg, device=device)
+    t_pack = time.perf_counter() - t0
+    tiles = fs.ptiles
+    log(f"{BIG_SCENE}: {static.n_tris} triangles, {tiles.shape[0]} tiles; load "
+        f"{t_load:.1f} s, host BVH build "
+        f"({'native' if native.available() else 'numpy'} builder) {t_bvh:.1f} s, "
+        f"host pack + upload {t_pack:.1f} s")
+    if tiles.shape[0] <= K.FRUSTUM_PLAN_TILES:
+        raise AssertionError(f"{BIG_SCENE}: {tiles.shape[0]} tiles, not above "
+                             f"{K.FRUSTUM_PLAN_TILES}")
+    check_pack(BIG_SCENE, fs)
+    for name, orig, dirn in (
+            (f"camera {BIG_FRAME[0]}x{BIG_FRAME[1]}",
+             *camera_rays(fs, *BIG_FRAME, BIG_FRAME[0] * BIG_FRAME[1], device)),
+            ("scattered chunk", *scattered_rays(static, CHUNK_RAYS, 7, device))):
+        tag = f"{BIG_SCENE}/{name}"
+        rays, _ = K._pack_rays(orig, dirn)
+        plan = K._plan_tiles(rays, fs.pboxes)
+        got = K.closest_sweep(*plan, rays, tiles)
+        want = K._sweep(*plan, rays, tiles, any_mode=False)
+        n_diff = [int(lane_diffs(a, b).sum()) for a, b in zip(got, want)]
+        a_k = K.any_sweep(*plan, rays, tiles)
+        n_any = int((a_k != K._sweep(*plan, rays, tiles, any_mode=True)).sum())
+        log(f"{tag}: frustum plan, {float(plan[1].float().mean()):.1f} tiles planned "
+            f"per block; closest vs plain: differing lanes t {n_diff[0]}, tri "
+            f"{n_diff[1]}; any vs plain: {n_any}")
+        if any(n_diff) or n_any:
+            raise AssertionError(f"{tag}: a sweep differs from its plain version")
+        share, flips, _ = compare_winners(tag, fs, orig, dirn, got,
+                                          K._small_sweep(rays, tiles, False))
+        a_share = float((a_k == K._small_sweep(rays, tiles, True)).float().mean())
+        log(f"{tag}: vs the brute sweep ({tiles.shape[0]} tiles in order): closest "
+            f"tri agrees on {share:.6f} of rays ({flips} near-tie flips), "
+            f"{float((got[0] < K.HIT_T).float().mean()):.3f} hit; any on "
+            f"{a_share:.6f}, {float(a_k.float().mean()):.3f} occluded")
+        if a_share < MIN_AGREE:
+            raise AssertionError(f"{tag}: any hit agrees with brute on {a_share:.6f}")
+        times = {k: median_ms(fn, 3) for k, fn in (
+            ("plan", lambda: K._plan_tiles(rays, fs.pboxes)),
+            ("closest", lambda: K.closest_sweep(*plan, rays, tiles)),
+            ("any", lambda: K.any_sweep(*plan, rays, tiles)))}
+        log(f"{tag}: ms per call by CUDA events: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+
+
 def lane_diffs(a, b):
     """Lanes where two [R] or [R, 3] tensors differ in any bit."""
     import torch
@@ -572,13 +713,15 @@ def lane_diffs(a, b):
 
 def first_bounce(fs, static, cfg, n, device):
     """The main path's first bounce on ``n`` camera rays: the wavefront, its
-    closest hit, material, environment and sun sample, shadow rays traced
-    (kernels throughout)."""
+    closest hit, material, environment, the shadow-ray setup (sun sample,
+    rays parked and packed) and the shadow rays traced (kernels
+    throughout).  The last item is the shadow-ray setup's arguments."""
     import torch
 
     from ptx_torch.integrator.wavefront import _env_radiance, initial_state
     from ptx_torch.kernels import intersect_cuda as K
     from ptx_torch.kernels import shade_cuda as S
+    from ptx_torch.kernels import sorting
     from ptx_torch.scene import textures
 
     pix = torch.arange(n, dtype=torch.int32, device=device)
@@ -588,10 +731,17 @@ def first_bounce(fs, static, cfg, n, device):
     env = _env_radiance(fs, static, cfg, state.dirn)
     sun, energy = S.sun_constants(fs)
     sun_args = (cfg.seed, 0, state.pixel_ids, state.sample_ids, state.alive,
-                h.normal, h.position, sun)
-    d_sun, org, exists = S.sun_sample(*sun_args)
-    shadow_hit = K.any_hit(fs, org, d_sun)
+                h.hit, h.normal, h.position, sun, sorting.park_constants(static))
+    d_sun, exists, rays = S.shadow_rays(*sun_args)
+    shadow_hit = K.any_hit_rows(fs, rays, n)
     return state, h, mat, env, (d_sun, exists, shadow_hit), energy, sun_args
+
+
+def lanes(args, n):
+    """The shadow-ray setup's arguments cut to their first ``n`` lanes."""
+    import torch
+
+    return tuple(a[:n] if torch.is_tensor(a) else a for a in args)
 
 
 def check_shade(fs, static, cfg, device, timing, reps):
@@ -609,7 +759,8 @@ def check_shade(fs, static, cfg, device, timing, reps):
     r_state, r_h, r_mat, r_env, r_sun = S.inputs_from_arrays(rnd, device)
     r_energy = (6.0, 5.6, 5.0)
     r_sun_args = (cfg.seed, 2, r_state.pixel_ids, r_state.sample_ids,
-                  r_state.alive, r_h.normal, r_h.position, sun_args[-1])
+                  r_state.alive, r_h.hit, r_h.normal, r_h.position,
+                  *sun_args[-2:])
 
     def compare(tag, names, got, want, kernel):
         counts = {}
@@ -625,9 +776,24 @@ def check_shade(fs, static, cfg, device, timing, reps):
             raise AssertionError(f"{tag}: the {kernel} kernel differs from its "
                                  f"plain version")
 
+    # The shadow-ray setup on every lane of d_sun and exists and every row
+    # of rays: compaction on (parked rows) and off, 32,768 and 8,192 lanes
+    # and 8,000 (whose last 64 rows are padding).
     for tag, args in (("first bounce", sun_args), ("random", r_sun_args)):
-        compare(f"sun/{tag}", ("d_sun", "org", "exists"), S.sun_sample(*args),
-                S._sun_sample(*args), "sun")
+        for compact in (True, False):
+            a = args if compact else args[:-1] + (None,)
+            for n in (LAUNCH_RAYS, CHUNK_RAYS, PARTIAL_LANES):
+                got = S.shadow_rays(*lanes(a, n))
+                if got[2].shape[0] != -(-n // 128) * 128:
+                    raise AssertionError(f"sun/{tag}: {got[2].shape[0]} ray rows")
+                compare(f"sun/{tag}/{'parked' if compact else 'not parked'}/{n}",
+                        ("d_sun", "exists", "rays"), got,
+                        S._shadow_rays(*lanes(a, n)), "sun")
+    n_dev = kernels_per_call("sun", lambda: S.shadow_rays(*lanes(sun_args, CHUNK_RAYS)))
+    log(f"sun: {n_dev:g} device kernels per shadow_rays call "
+        f"(sample, park and pack)")
+    if n_dev > 1:
+        raise AssertionError(f"the shadow-ray setup ran {n_dev:g} device kernels")
     out_names = ("orig", "dirn", "radiance", "throughput", "alpha", "alive",
                  "bounce")
     quirk_sets = type(cfg.quirks)
@@ -648,12 +814,19 @@ def check_shade(fs, static, cfg, device, timing, reps):
         f"{float(sun[1].float().mean()):.3f} sun up, "
         f"{float(sun[2].float().mean()):.3f} shadowed")
     if timing is not None:
+        # The shadow-ray setup at 32,768 lanes, then at the main path's own
+        # 8,192-lane chunk (the record keeps the chunk's times).
+        for n in (LAUNCH_RAYS, CHUNK_RAYS):
+            a = lanes(sun_args, n)
+            time_kernel(timing, "sun", f"first bounce, {n} lanes",
+                        lambda: S.shadow_rays(*a), lambda: S._shadow_rays(*a),
+                        reps, (n * SUN_OPS, tensor_bytes(a, S.shadow_rays(*a),
+                                                         lanes=n)))
+            log(f"first bounce, {n} lanes: sun kernel "
+                f"{graph_ms(lambda: S.shadow_rays(*a)):.4f} ms per call in a "
+                f"CUDA graph of 20 calls (the launch gaps included)")
         tag = f"first bounce, {LAUNCH_RAYS} lanes"
         n = LAUNCH_RAYS
-        time_kernel(timing, "sun", tag, lambda: S.sun_sample(*sun_args),
-                    lambda: S._sun_sample(*sun_args), reps,
-                    (n * SUN_OPS, tensor_bytes(sun_args, S.sun_sample(*sun_args),
-                                               lanes=n)))
         shade_args = (cfg, 0, state, h, mat, env, sun, energy)
         time_kernel(timing, "shade", tag, lambda: S.shade(*shade_args),
                     lambda: S._shade(*shade_args), reps,
@@ -787,6 +960,10 @@ def main() -> int:
     check_kernels(fs_s, static_s, [(*r[:3], False) for r in small_rays],
                   SMALL_SCENE, None, reps=0)
     errs.update(check_small(fs_s, small_rays, SMALL_SCENE, timing, reps=5))
+    # The device tile pack, then the scene above FRUSTUM_PLAN_TILES.
+    check_pack(SLICE_SCENE, fs)
+    check_above_frustum(cfg, dev)
+    torch.cuda.empty_cache()
 
     # 4. sun and shade kernels vs plain versions
     errs.update(check_shade(fs, static, cfg, dev, timing, reps=5))
@@ -805,6 +982,9 @@ def main() -> int:
     for name in MAIN_PATH_KERNELS:
         if launches[name] <= 0:
             raise AssertionError(f"main path never launched the {name} kernel")
+    if launches["sun"] != launches["shade"]:
+        raise AssertionError("the main path ran the shadow-ray setup "
+                             f"{launches['sun']} times in {launches['shade']} steps")
     if not np.isfinite(res.color).all():
         raise AssertionError("main path image is not finite")
     if res.color.shape != (256, 256, 3) or res.image[..., :3].max() == 0:
@@ -939,7 +1119,7 @@ def main() -> int:
                            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
                            # No single PyTorch call computes any of these.
                            bound_by=t["bound_by"], library_ms=None,
-                           device_ms=t["device_ms"]))
+                           device_ms=t["device_ms"], device_by=t["device_by"]))
     log(smi)
     log(json.dumps({"kernels": record}))
     log(json.dumps({"ok": True, "device": {

@@ -1,18 +1,24 @@
-// The shade stage: the sun's cone sample and the fused shading of one bounce.
+// The shade stage: the sun's cone sample with the shadow-ray setup, and the
+// fused shading of one bounce.
 //
 // Replaces: ptx/kernels/shade_pallas.py::_sun_kernel (launched by _call_sun)
 // and the kernel built by _make_shade_kernel (launched by _call_shade).
 //
-//   ptx_sun:   PCG4D theta / phi draws, a cone about the sun direction with
-//              the reference's non-parallel-axis basis, the shadow origin
-//              p + d * EPS and exists = (n . d > 0) & alive.
+//   ptx_shadow_rays: PCG4D theta / phi draws, a cone about the sun direction
+//              with the reference's non-parallel-axis basis and exists =
+//              (n . d > 0) & alive; then the shadow rays as the any sweep
+//              reads them: [R_pad, 8] rows (p + d * EPS, d, 0, 0), lanes
+//              without exists & hit parked outside the scene when survivor
+//              compaction is on (sorting.park), padding rows (0,0,0,1,0,0,
+//              0,0) (tiles._pack_rays).  One launch in place of the sun
+//              kernel, the park and the pack.
 //   ptx_shade: env on a miss, emission x scale, stochastic opacity, TBN +
 //              normal map, backface cull, first-bounce shadow catcher, lobe
 //              pick, sun NEE (HAS_SUN), GGX / cosine importance sampling,
 //              throughput clamps, Russian roulette and the lane merges, with
 //              the Pallas kernel's semantics (dead lanes' origins become 0,
 //              alive = alive & (passthrough | continues)).
-// The plain torch versions (_sun_sample, _shade in kernels/shade_cuda.py)
+// The plain torch versions (_shadow_rays, _shade in kernels/shade_cuda.py)
 // run the same operations in the same order.  With -fmad=false each
 // operation rounds once, as in torch; the remaining care points:
 //   * constants are single f32 roundings of the JAX package's python floats
@@ -28,8 +34,9 @@
 // stage is bound by device memory: ~190 bytes read and ~50 written per ray
 // (the state, hit, material and sun tensors; each is read in place through
 // a (pointer, stride) pair, so no copy kernel gathers views first) against
-// ~600 flops.  The design point is the launch count: the plain torch stage
-// is ~1,000 small kernels per bounce, this is two.
+// ~600 flops.  The shadow-ray setup reads 34 bytes and writes 45 per lane
+// (and 32 per padding row).  The design point is the launch count: the
+// plain torch stage is ~1,000 small kernels per bounce, this is two.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -60,15 +67,18 @@ struct Col {
   long long s;
 };
 
-struct SunArgs {
-  Col pix, smp, alive, normal, position;
-  float* out_dir;        // [R, 3]
-  float* out_org;        // [R, 3]
-  uint8_t* out_exists;   // [R] bool
-  long long n;
+struct ShadowArgs {
+  Col pix, smp, alive, hit, normal, position;
+  float* out_dir;        // [n, 3] the sun sample, for the shade kernel
+  uint8_t* out_exists;   // [n] bool
+  float4* out_rays;      // [n_pad, 8] ray rows, 32-byte aligned
+  long long n, n_pad;
   uint32_t it, seed;
   float sun_dir[3];
   float angular_radius;
+  int park;              // park the lanes without exists & hit
+  float park_org[3];     // hi + (hi - lo) + 1 of the scene box
+  float park_dir;        // f32(0.57735027)
 };
 
 struct ShadeArgs {
@@ -224,25 +234,45 @@ __device__ __forceinline__ Brdf brdf_block(V3 n, V3 o, V3 i, V3 alb,
           specular_pdf};
 }
 
-__global__ void __launch_bounds__(256) sun_kernel(const SunArgs a) {
+// One thread per ray row, n_pad of them.  A lane i < n draws the sun sample
+// (d_sun, exists) and writes its shadow ray row (p + d * EPS, d), or the
+// parked row when parking is on and the lane lacks exists & hit; a row
+// n <= i < n_pad is padding (0,0,0, 1,0,0, 0,0).  Each row is two 16-byte
+// stores.  SUN_THREADS is small so that a chunk of 8,192 lanes spreads
+// over 128 CTAs, about one per SM.
+constexpr int SUN_THREADS = 64;
+
+__global__ void __launch_bounds__(SUN_THREADS)
+    shadow_rays_kernel(const ShadowArgs a) {
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= a.n) return;
-  const uint32_t pix = (uint32_t)ldi(a.pix, i), smp = (uint32_t)ldi(a.smp, i);
-  const float u_theta = uniform(pix, smp, a.it, P_SUN_THETA, a.seed);
-  const float u_phi = uniform(pix, smp, a.it, P_SUN_PHI, a.seed);
-  const float cos_t = cosf(u_theta * a.angular_radius);
-  const V3 d = cone(u_phi, cos_t, {a.sun_dir[0], a.sun_dir[1], a.sun_dir[2]});
-  const V3 n = ld3(a.normal, i);
-  const V3 p = ld3(a.position, i);
-  float* dir = a.out_dir + i * 3;
-  float* org = a.out_org + i * 3;
-  dir[0] = d.x;
-  dir[1] = d.y;
-  dir[2] = d.z;
-  org[0] = p.x + d.x * EPS;
-  org[1] = p.y + d.y * EPS;
-  org[2] = p.z + d.z * EPS;
-  a.out_exists[i] = (dot(n, d) > 0.0f) && ldb(a.alive, i);
+  if (i >= a.n_pad) return;
+  float4 lo = make_float4(0.0f, 0.0f, 0.0f, 1.0f);
+  float4 hi = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (i < a.n) {
+    const uint32_t pix = (uint32_t)ldi(a.pix, i), smp = (uint32_t)ldi(a.smp, i);
+    const float u_theta = uniform(pix, smp, a.it, P_SUN_THETA, a.seed);
+    const float u_phi = uniform(pix, smp, a.it, P_SUN_PHI, a.seed);
+    const float cos_t = cosf(u_theta * a.angular_radius);
+    const V3 d = cone(u_phi, cos_t, {a.sun_dir[0], a.sun_dir[1], a.sun_dir[2]});
+    const V3 n = ld3(a.normal, i);
+    const V3 p = ld3(a.position, i);
+    const bool exists = (dot(n, d) > 0.0f) && ldb(a.alive, i);
+    float* dir = a.out_dir + i * 3;
+    dir[0] = d.x;
+    dir[1] = d.y;
+    dir[2] = d.z;
+    a.out_exists[i] = exists;
+    if (a.park && !(exists && ldb(a.hit, i))) {
+      const float w = a.park_dir;
+      lo = make_float4(a.park_org[0], a.park_org[1], a.park_org[2], w);
+      hi = make_float4(w, w, 0.0f, 0.0f);
+    } else {
+      lo = make_float4(p.x + d.x * EPS, p.y + d.y * EPS, p.z + d.z * EPS, d.x);
+      hi = make_float4(d.y, d.z, 0.0f, 0.0f);
+    }
+  }
+  a.out_rays[2 * i] = lo;
+  a.out_rays[2 * i + 1] = hi;
 }
 
 template <bool HAS_SUN>
@@ -421,10 +451,10 @@ int blocks_for(long long n) { return (int)((n + THREADS - 1) / THREADS); }
 
 }  // namespace
 
-extern "C" int ptx_sun(const SunArgs* args, void* stream) {
-  if (args->n > 0)
-    sun_kernel<<<blocks_for(args->n), THREADS, 0, (cudaStream_t)stream>>>(
-        *args);
+extern "C" int ptx_shadow_rays(const ShadowArgs* args, void* stream) {
+  if (args->n_pad > 0)
+    shadow_rays_kernel<<<(int)((args->n_pad + SUN_THREADS - 1) / SUN_THREADS),
+                         SUN_THREADS, 0, (cudaStream_t)stream>>>(*args);
   return (int)cudaGetLastError();
 }
 

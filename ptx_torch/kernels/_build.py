@@ -45,13 +45,14 @@ _SIGNATURES = {
     "ptx_any": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
     "ptx_closest_small": [_P, _P, _I, _I, _P, _P, _P],
     "ptx_any_small": [_P, _P, _I, _I, _P, _P],
-    "ptx_sun": [_P, _P],
+    "ptx_shadow_rays": [_P, _P],
     "ptx_shade": [_P, _I, _P],
     "ptx_rcp_check": [_P, _P],
 }
 
 # Kernel launches per wrapper since the last reset_launches() ("exact_gate":
-# the plan kernel, which replaces the JAX package's exact gate kernel).
+# the plan kernel, which replaces the JAX package's exact gate kernel;
+# "sun": the shadow-ray setup, which replaces its sun kernel).
 LAUNCHES = {
     "exact_gate": 0, "closest": 0, "any": 0, "closest_small": 0,
     "any_small": 0, "sun": 0, "shade": 0, "closest_stats": 0,

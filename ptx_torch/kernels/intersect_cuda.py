@@ -43,6 +43,7 @@ from ptx_torch.kernels.tiles import (
     _frustum_gate,
     _pack_rays,
     identity_plan,
+    pack_tris,
     sort_plan,
 )
 from ptx_torch.scene.flatten import FlatScene
@@ -360,12 +361,13 @@ def any_small(rays, tiles):
 
 
 def _scene_tiles(fs: FlatScene):
-    if fs.ptiles.shape[0] == 0 or fs.ptiles.shape[2] != TT:
-        raise ValueError(
-            "scene has no traversal tiles: attach them with "
-            "ptx_torch.render.ensure_accel (or kernels.tiles.attach_tiles)"
-        )
-    return fs.ptiles, fs.pboxes
+    """The scene's traversal tiles and boxes: the attached ones when packed
+    at this TT, else packed in the call on the scene's device
+    (:func:`ptx_torch.kernels.tiles.pack_tris`), as the JAX package does
+    for scenes built without them."""
+    if fs.ptiles.shape[0] > 0 and fs.ptiles.shape[2] == TT:
+        return fs.ptiles, fs.pboxes
+    return pack_tris(fs)
 
 
 def closest(fs: FlatScene, orig, dirn) -> Hit:
@@ -394,16 +396,20 @@ def closest(fs: FlatScene, orig, dirn) -> Hit:
     return attrs_from_indices(fs, t, tri, beta, gamma, hit, at=at)
 
 
-def any_hit(fs: FlatScene, orig, dirn):
-    """Occlusion through the planned tile traversal: [R] bool."""
-    r = orig.shape[0]
-    rays, _ = _pack_rays(orig, dirn)
+def any_hit_rows(fs: FlatScene, rays, r: int):
+    """Occlusion of rays already packed as ``[R_pad, 8]`` rows (the layout
+    of ``_pack_rays``) of which the first ``r`` are real: [r] bool."""
     tiles, boxes = _scene_tiles(fs)
     if tiles.shape[0] <= SMALL_TILES:
         hit = any_small(rays, tiles)
     else:
         hit = any_sweep(*_plan_tiles(rays, boxes), rays, tiles)
     return hit[:r] > 0
+
+
+def any_hit(fs: FlatScene, orig, dirn):
+    """Occlusion through the planned tile traversal: [R] bool."""
+    return any_hit_rows(fs, _pack_rays(orig, dirn)[0], orig.shape[0])
 
 
 def closest_stats(fs: FlatScene, orig, dirn):

@@ -2,8 +2,9 @@
 versions, and the integrator that runs them (port of
 ``ptx/kernels/shade_pallas.py``, forward only).
 
-* :func:`sun_sample` - ``csrc/shade.cu::ptx_sun``, plain version
-  :func:`_sun_sample`: the sun's cone sample and the shadow ray.
+* :func:`shadow_rays` - ``csrc/shade.cu::ptx_shadow_rays``, plain version
+  :func:`_shadow_rays`: the sun's cone sample (:func:`_sun_sample`) and the
+  shadow rays, parked and packed as the any sweep reads them.
 * :func:`shade` - ``csrc/shade.cu::ptx_shade``, plain version :func:`_shade`:
   the whole shading stage of one bounce, with the Pallas kernel's semantics
   (dead lanes' origins become 0; ``alive = alive & (passthrough |
@@ -20,8 +21,9 @@ XLA makes of a division by a constant and what torch does on the card for a
 division by a python scalar.
 
 :func:`make_pallas_integrator` is ``render``'s "pallas" shader: per bounce,
-park, closest hit, material fetch, environment, sun kernel, shadow rays
-parked on ``exists & hit``, any hit, shade kernel.
+park, closest hit, material fetch, environment, the shadow-ray kernel (sun
+sample, shadow rays parked on ``exists & hit`` and packed), any hit, shade
+kernel.
 """
 
 from __future__ import annotations
@@ -40,7 +42,8 @@ from ptx_torch.integrator.wavefront import (
     max_iterations,
     run_forward,
 )
-from ptx_torch.kernels import _build, sorting
+from ptx_torch.kernels import _build, intersect_cuda, sorting
+from ptx_torch.kernels.tiles import RB, _pack_rays
 from ptx_torch.scene import textures
 from ptx_torch.config import RenderConfig
 from ptx_torch.scene.flatten import FlatScene, SceneStatic
@@ -147,14 +150,17 @@ class _Col(ctypes.Structure):
     _fields_ = [("p", ctypes.c_void_p), ("s", ctypes.c_longlong)]
 
 
-class _SunArgs(ctypes.Structure):
+class _ShadowArgs(ctypes.Structure):
     _fields_ = [
-        *((name, _Col) for name in ("pix", "smp", "alive", "normal", "position")),
-        ("out_dir", ctypes.c_void_p), ("out_org", ctypes.c_void_p),
-        ("out_exists", ctypes.c_void_p),
-        ("n", ctypes.c_longlong), ("it", ctypes.c_uint32),
-        ("seed", ctypes.c_uint32), ("sun_dir", ctypes.c_float * 3),
-        ("angular_radius", ctypes.c_float),
+        *((name, _Col) for name in ("pix", "smp", "alive", "hit", "normal",
+                                    "position")),
+        ("out_dir", ctypes.c_void_p), ("out_exists", ctypes.c_void_p),
+        ("out_rays", ctypes.c_void_p),
+        ("n", ctypes.c_longlong), ("n_pad", ctypes.c_longlong),
+        ("it", ctypes.c_uint32), ("seed", ctypes.c_uint32),
+        ("sun_dir", ctypes.c_float * 3), ("angular_radius", ctypes.c_float),
+        ("park", ctypes.c_int), ("park_org", ctypes.c_float * 3),
+        ("park_dir", ctypes.c_float),
     ]
 
 
@@ -204,9 +210,9 @@ def _u32(v: int) -> int:
 
 
 def _sun_sample(seed, it, pix, smp, alive, normal, position, sun):
-    """Plain version of ``ptx_sun``.  ``sun``: (dir x, y, z, angular radius)
-    as python floats.  Returns ``(d_sun [R, 3], shadow_org [R, 3],
-    exists [R] bool)``."""
+    """The sun's cone sample (the JAX package's ``_sun_kernel``).  ``sun``:
+    (dir x, y, z, angular radius) as python floats.  Returns ``(d_sun
+    [R, 3], shadow_org [R, 3], exists [R] bool)``."""
     u_theta = sampling.uniform(pix, smp, it, sampling.P_SUN_THETA, seed)
     u_phi = sampling.uniform(pix, smp, it, sampling.P_SUN_PHI, seed)
     cos_t = torch.cos(u_theta * sun[3])
@@ -217,25 +223,48 @@ def _sun_sample(seed, it, pix, smp, alive, normal, position, sun):
     return _stack(d), _stack(org), exists
 
 
-def sun_sample(seed, it, pix, smp, alive, normal, position, sun):
-    """The sun's cone sample and shadow ray of a wavefront: the kernel for
-    CUDA tensors, :func:`_sun_sample` for CPU tensors."""
-    if _build.on_cpu(pix, smp, alive, normal, position):
-        return _sun_sample(seed, it, pix, smp, alive, normal, position, sun)
+def _shadow_rays(seed, it, pix, smp, alive, hit, normal, position, sun, park):
+    """Plain version of ``ptx_shadow_rays``: :func:`_sun_sample`, then the
+    lanes without ``exists & hit`` parked (``sorting.park_with`` when
+    ``park`` is the scene's ``sorting.park_constants``; None: no parking),
+    then the rows of ``tiles._pack_rays``.  Returns ``(d_sun [R, 3],
+    exists [R] bool, rays [R_pad, 8])``."""
+    d_sun, org, exists = _sun_sample(seed, it, pix, smp, alive, normal,
+                                     position, sun)
+    dirn = d_sun
+    if park is not None:
+        org, dirn = sorting.park_with(org, d_sun, exists & hit, park)
+    return d_sun, exists, _pack_rays(org, dirn)[0]
+
+
+def shadow_rays(seed, it, pix, smp, alive, hit, normal, position, sun, park):
+    """The sun's cone sample and the shadow rays of a wavefront, packed for
+    the any sweep (arguments and result of :func:`_shadow_rays`): the kernel
+    for CUDA tensors, :func:`_shadow_rays` for CPU tensors."""
+    if _build.on_cpu(pix, smp, alive, hit, normal, position):
+        return _shadow_rays(seed, it, pix, smp, alive, hit, normal, position,
+                            sun, park)
     n = pix.shape[0]
+    n_pad = -(-n // RB) * RB
     ins = [_col(pix, "pix", n, torch.int32), _col(smp, "smp", n, torch.int32),
-           _col(alive, "alive", n, torch.bool),
+           _col(alive, "alive", n, torch.bool), _col(hit, "hit", n, torch.bool),
            _col(normal, "normal", n, torch.float32, True),
            _col(position, "position", n, torch.float32, True)]
-    d_sun = torch.empty((n, 3), dtype=torch.float32, device=pix.device)
-    org = torch.empty((n, 3), dtype=torch.float32, device=pix.device)
-    exists = torch.empty((n,), dtype=torch.bool, device=pix.device)
-    args = _SunArgs(*(c for _, c in ins), d_sun.data_ptr(), org.data_ptr(),
-                    exists.data_ptr(), n, _u32(it), _u32(seed),
-                    (ctypes.c_float * 3)(*sun[:3]), sun[3])
-    _build.launch(_build.load().ptx_sun, ctypes.byref(args))
+    dev = pix.device
+    d_sun = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    exists = torch.empty((n,), dtype=torch.bool, device=dev)
+    rays = torch.empty((n_pad, 8), dtype=torch.float32, device=dev)
+    if rays.data_ptr() % 32:
+        raise ValueError("rays: not 32-byte aligned")
+    p_org, p_dir = park if park is not None else ((0.0, 0.0, 0.0), 0.0)
+    args = _ShadowArgs(*(c for _, c in ins), d_sun.data_ptr(),
+                       exists.data_ptr(), rays.data_ptr(), n, n_pad, _u32(it),
+                       _u32(seed), (ctypes.c_float * 3)(*sun[:3]), sun[3],
+                       int(park is not None), (ctypes.c_float * 3)(*p_org),
+                       p_dir)
+    _build.launch(_build.load().ptx_shadow_rays, ctypes.byref(args))
     _build.LAUNCHES["sun"] += 1
-    return d_sun, org, exists
+    return d_sun, exists, rays
 
 
 # --------------------------------------------------------------------------
@@ -485,15 +514,24 @@ def make_pallas_step(static: SceneStatic, cfg: RenderConfig,
                      closest: Callable, any_hit: Callable):
     """One bounce ``(fs, it, state, sun) -> RayState`` of the fused schedule
     (``shade_pallas.make_pallas_step``, without ``record``); ``sun`` is
-    :func:`sun_constants` of ``fs``, or None without a sun."""
+    :func:`sun_constants` of ``fs``, or None without a sun.  The shadow
+    rays go to the tile traversal as the rows :func:`shadow_rays` packs
+    (``intersect_cuda.any_hit_rows``); another ``any_hit`` gets their
+    origins and directions."""
     do_compact = sorting.resolve_compact(static, cfg)
+    park = sorting.park_constants(static) if do_compact else None
+    if any_hit is intersect_cuda.any_hit:
+        any_rows = intersect_cuda.any_hit_rows
+    else:
+        def any_rows(fs, rays, r):
+            return any_hit(fs, rays[:r, 0:3], rays[:r, 3:6])
 
     def step(fs: FlatScene, it: int, state: RayState, sun) -> RayState:
         # Dead lanes are parked so they sort into all-dead blocks and fail
         # every tile gate; the shade kernel masks their results.
         if do_compact:
-            q_orig, q_dirn = sorting.park(state.orig, state.dirn, state.alive,
-                                          static)
+            q_orig, q_dirn = sorting.park_with(state.orig, state.dirn,
+                                               state.alive, park)
         else:
             q_orig, q_dirn = state.orig, state.dirn
         h = closest(fs, q_orig, q_dirn)
@@ -501,18 +539,14 @@ def make_pallas_step(static: SceneStatic, cfg: RenderConfig,
         env = _env_radiance(fs, static, cfg, state.dirn)
         if sun is None:
             return shade(cfg, it, state, h, mat, env)
-        d_sun, shadow_org, exists = sun_sample(
-            cfg.seed, it, state.pixel_ids, state.sample_ids, state.alive,
-            h.normal, h.position, sun[0],
-        )
         # Occlusion matters only where the lane is alive with a hit and an
-        # up-facing sun (``exists`` already holds alive).
-        if do_compact:
-            s_org, s_dir = sorting.park(shadow_org, d_sun, exists & h.hit,
-                                        static)
-        else:
-            s_org, s_dir = shadow_org, d_sun
-        shadow_hit = any_hit(fs, s_org, s_dir)
+        # up-facing sun (``exists`` holds alive); with compaction the other
+        # lanes' shadow rays are parked.
+        d_sun, exists, rays = shadow_rays(
+            cfg.seed, it, state.pixel_ids, state.sample_ids, state.alive,
+            h.hit, h.normal, h.position, sun[0], park,
+        )
+        shadow_hit = any_rows(fs, rays, state.alive.shape[0])
         return shade(cfg, it, state, h, mat, env, (d_sun, exists, shadow_hit),
                      sun[1])
 

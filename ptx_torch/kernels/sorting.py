@@ -10,6 +10,7 @@ JAX package is done in int64, where none of it overflows.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ptx_torch.scene.flatten import SceneStatic
@@ -66,16 +67,29 @@ def ray_keys(orig, dirn, lo, hi, bits: int = MORTON_BITS):
     return ((morton << 3) | octant).to(torch.int32)
 
 
+def park_constants(static: SceneStatic):
+    """``((x, y, z) of the parked origin, the parked direction's component)``
+    as python floats: ``hi + (hi - lo) + 1`` of the scene box with each
+    operation rounded once in float32, as the JAX package computes it, and
+    f32(0.57735027).  Kernels take them by value."""
+    hi = np.asarray(static.aabb_hi, np.float32)
+    lo = np.asarray(static.aabb_lo, np.float32)
+    p_orig = (hi + (hi - lo)) + np.float32(1.0)
+    return tuple(float(x) for x in p_orig), float(np.float32(0.57735027))
+
+
 def park(orig, dirn, keep, static: SceneStatic):
     """Move lanes where ``keep`` is False outside the scene, pointing away:
     they hit nothing, fail every gate and share one morton cell.  Callers
     mask those lanes' results."""
-    hi = torch.tensor(static.aabb_hi, dtype=torch.float32, device=orig.device)
-    lo = torch.tensor(static.aabb_lo, dtype=torch.float32, device=orig.device)
-    p_orig = hi + (hi - lo) + 1.0
-    p_dir = torch.tensor(
-        [0.57735027, 0.57735027, 0.57735027], dtype=torch.float32,
-        device=orig.device,
-    )
+    return park_with(orig, dirn, keep, park_constants(static))
+
+
+def park_with(orig, dirn, keep, constants):
+    """:func:`park` with the scene's :func:`park_constants` given."""
+    p_orig, p_dir = constants
     k = keep[..., None]
-    return torch.where(k, orig, p_orig), torch.where(k, dirn, p_dir)
+    return (torch.where(k, orig, torch.tensor(p_orig, dtype=torch.float32,
+                                              device=orig.device)),
+            torch.where(k, dirn, torch.tensor([p_dir] * 3, dtype=torch.float32,
+                                              device=orig.device)))

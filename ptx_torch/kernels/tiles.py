@@ -97,6 +97,110 @@ def attach_tiles(fs: FlatScene) -> FlatScene:
     return fs._replace(ptiles=tiles, pboxes=boxes)
 
 
+# --------------------------------------------------------------------------
+# The same pack in torch, on the scene's own device
+# --------------------------------------------------------------------------
+#
+# Bit-equal to :func:`attach_tiles` on the CPU and on the card: every product,
+# sum and quotient is its own elementwise op (eager torch runs each as one
+# kernel, so nothing contracts into an FMA), the square root is taken in
+# float64 and rounded once, and the reductions follow
+# numpy's rules where torch's differ: a 3-term sum is ((p0 + p1) + p2) + 0
+# (numpy starts from +0, so an all -0 sum is +0), np.minimum / np.maximum
+# return their second operand on a tie, and np.min / np.max over an axis
+# fold in order, so among tied zeros the last one's sign wins.
+
+
+def _np_min(a, b):
+    return torch.where((a < b) | torch.isnan(a), a, b)
+
+
+def _np_max(a, b):
+    return torch.where((a > b) | torch.isnan(a), a, b)
+
+
+def _np_sum3(p0, p1, p2):
+    return ((p0 + p1) + p2) + 0.0
+
+
+def _np_dot(u, v):
+    return _np_sum3(u[:, 0] * v[:, 0], u[:, 1] * v[:, 1], u[:, 2] * v[:, 2])
+
+
+def _np_cross(u, v):
+    return torch.stack([u[:, 1] * v[:, 2] - u[:, 2] * v[:, 1],
+                        u[:, 2] * v[:, 0] - u[:, 0] * v[:, 2],
+                        u[:, 0] * v[:, 1] - u[:, 1] * v[:, 0]], 1)
+
+
+def _np_reduce(x, dim, largest: bool):
+    """np.min / np.max of ``x`` over ``dim``: the value of ``amin`` /
+    ``amax``, and where that value is zero, the sign of the last zero."""
+    m = x.amax(dim) if largest else x.amin(dim)
+    idx = torch.arange(x.shape[dim], device=x.device).view(
+        [-1 if d == dim else 1 for d in range(x.dim())])
+    last = torch.where(x == 0, idx, -1).amax(dim, keepdim=True).clamp(min=0)
+    return torch.where(m == 0, x.gather(dim, last).squeeze(dim), m)
+
+
+def _bw_rows_torch(a, e1, e2):
+    """:func:`_bw_rows` in torch, bit for bit: [12, N] float32."""
+    n = _np_cross(e1, e2)
+    # torch's float32 sqrt on the CPU is not always correctly rounded; the
+    # float64 root rounded to float32 is (as numpy's float32 sqrt is).
+    nl = torch.sqrt(_np_sum3(n[:, 0] * n[:, 0], n[:, 1] * n[:, 1],
+                             n[:, 2] * n[:, 2]).double()).float()[:, None]
+    tiny = float(np.float32(1e-30))
+    ok = nl[:, 0] > tiny
+    safe = _np_max(nl, torch.full_like(nl, tiny))
+    nn = n / safe
+    d = -_np_dot(nn, a)
+    t1 = _np_cross(e2, nn) / safe
+    t2 = _np_cross(nn, e1) / safe
+    t1w = -_np_dot(t1, a)
+    t2w = -_np_dot(t2, a)
+    cols = [nn[:, 0], nn[:, 1], nn[:, 2], d, t1[:, 0], t1[:, 1], t1[:, 2], t1w,
+            t2[:, 0], t2[:, 1], t2[:, 2], t2w]
+    return torch.stack([torch.where(ok, c, 0.0) for c in cols])
+
+
+def pack_tris(fs: FlatScene):
+    """``(tiles [T, 16, TT], boxes [T, 8])`` of the scene's triangles, on
+    the device that holds ``fs``'s tensors (port of the JAX package's
+    in-call ``pack_tris``): the traversal's fallback for a scene without
+    attached tiles.  Bit-equal to :func:`attach_tiles`.  As there, a padding
+    tile gets the inverted box (INF, -INF), which the slab test treats as
+    all space: it gates in for every ray and never hits."""
+    tri_a, tri_e1, tri_e2 = (torch.as_tensor(x, dtype=torch.float32)
+                             for x in (fs.tri_a, fs.tri_e1, fs.tri_e2))
+    tri_valid = torch.as_tensor(fs.tri_valid, device=tri_a.device).to(torch.bool)
+    dev = tri_a.device
+    n = tri_a.shape[0]
+    n_pad = -(-n // TT) * TT
+    n_tiles = n_pad // TT
+    pad = n_pad - n
+    if pad:
+        z = torch.zeros((pad, 3), dtype=torch.float32, device=dev)
+        tri_a, tri_e1, tri_e2 = (torch.cat([x, z]) for x in (tri_a, tri_e1, tri_e2))
+    tris = torch.zeros((16, n_pad), dtype=torch.float32, device=dev)
+    tris[0:12] = _bw_rows_torch(tri_a, tri_e1, tri_e2)
+
+    a = tri_a.reshape(n_tiles, TT, 3)
+    b = (tri_a + tri_e1).reshape(n_tiles, TT, 3)
+    c = (tri_a + tri_e2).reshape(n_tiles, TT, 3)
+    i = torch.arange(n_pad, device=dev)
+    n_valid = tri_valid.shape[0]
+    valid = ((i < n_valid) & tri_valid[i.clamp(max=max(n_valid - 1, 0))]
+             ).reshape(n_tiles, TT, 1)
+    lo = _np_reduce(torch.where(valid, _np_min(_np_min(a, b), c), INF), 1, False)
+    hi = _np_reduce(torch.where(valid, _np_max(_np_max(a, b), c), -INF), 1, True)
+    boxes = torch.zeros((n_tiles, 8), dtype=torch.float32, device=dev)
+    boxes[:, 0:3] = lo
+    boxes[:, 3:6] = hi
+    tiles = tris.reshape(16, n_tiles, TT).transpose(0, 1).contiguous()
+    return tiles, boxes
+
+
 def _pack_rays(orig, dirn):
     """[R_pad, 8] ray rows (ox oy oz dx dy dz 0 0), R_pad a multiple of RB.
     Padding rays get a unit direction so no NaN flows through the sweep."""

@@ -234,10 +234,19 @@ def test_small_wrappers_run_plain_on_cpu():
 
 
 def test_closest_needs_tiles():
+    """A scene without attached tiles gets them packed in the call
+    (``tiles.pack_tris``), as in the JAX package: the same hits as with the
+    attached tiles."""
     fs, static = load_synthetic("synthetic:2000")
-    orig = torch.zeros((4, 3))
-    with pytest.raises(ValueError, match="traversal tiles"):
-        intersect_cuda.closest(to_device(port_flat(fs), "cpu"), orig, orig + 1.0)
+    bare = to_device(port_flat(fs), "cpu")
+    assert bare.ptiles.shape[0] == 0
+    _, _, fs_t, static = _scene("synthetic:2000")
+    orig, dirn = _rays(fs_t, static, "camera")
+    got, want = (intersect_cuda.closest(f, orig, dirn) for f in (bare, fs_t))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(intersect_cuda.any_hit(bare, orig, dirn),
+                       intersect_cuda.any_hit(fs_t, orig, dirn))
 
 
 @pytest.mark.parametrize("spec", ["arch:2000", "synthetic:2000"])

@@ -26,9 +26,13 @@ import pytest
 import torch
 
 from ptx.config import Quirks, RenderConfig
+from ptx.kernels import intersect_pallas as kp
 from ptx.kernels import shade_pallas as sp
+from ptx.kernels import sorting as jsorting
 from ptx_torch import config as pconfig
 from ptx_torch.kernels import _build, shade_cuda
+from ptx_torch.kernels import sorting as psorting
+from ptx_torch.kernels import tiles as ptiles
 from _torch_port import port_config
 
 BOUNCES = 4
@@ -95,6 +99,79 @@ def test_sun_matches_pallas(n):
     np.testing.assert_array_equal(exists, want[2])
     assert _share([org], [want[1]]) >= MIN_AGREE
     np.testing.assert_allclose(d_sun, want[0], rtol=0, atol=SUN_DIR_ATOL)
+
+
+# A scene box for the parked shadow rays.
+BOX = types.SimpleNamespace(aabb_lo=(-12.0, -3.5, -20.25),
+                            aabb_hi=(11.0, 17.3, 9.75))
+
+
+def _jax_shadow_rays(a, seed, it, compact):
+    """The JAX package's shadow-ray setup as ``make_pallas_step`` runs it:
+    ``_call_sun`` (interpret mode; lanes padded to whole rows of 128, which
+    an elementwise kernel ignores), ``sorting.park`` on ``exists & hit``,
+    ``intersect_pallas._pack_rays``."""
+    n = a["pix"].shape[0]
+    pad = -n % sp.LANES
+    b = {k: np.concatenate([v, v[:pad]]) for k, v in a.items()}
+    d_sun, org, exists = (x[:n] for x in _jax_sun(b, seed, it))
+    dirn = d_sun
+    if compact:
+        org, dirn = (np.asarray(x) for x in jsorting.park(
+            jnp.asarray(org), jnp.asarray(d_sun),
+            jnp.asarray(exists & a["hit"]), BOX))
+    rays, _ = kp._pack_rays(jnp.asarray(org), jnp.asarray(dirn))
+    return d_sun, exists, np.asarray(rays)
+
+
+def _shadow_args(a, seed, it, compact):
+    t = {k: torch.from_numpy(a[k]) for k in ("pix", "smp", "alive", "hit",
+                                             "normal", "position")}
+    park = psorting.park_constants(BOX) if compact else None
+    return (seed, it, t["pix"], t["smp"], t["alive"], t["hit"], t["normal"],
+            t["position"], (*map(float, SUN_DIR), float(SUN_ANGLE)), park)
+
+
+@pytest.mark.parametrize("compact", [True, False])
+@pytest.mark.parametrize("n", [N_SMALL, N_PARTIAL, 1000])
+def test_shadow_rays_match_pallas(n, compact):
+    """The plain shadow-ray setup (``_shadow_rays``, the CUDA kernel's plain
+    version) against the JAX package's: ``exists``, the parked rows and the
+    padding rows exactly, directions and origins within SUN_DIR_ATOL."""
+    a = shade_cuda.random_inputs(n, BOUNCES, seed=12)
+    seed, it = 9, 2
+    d_sun, exists, rays = (x.numpy() for x in shade_cuda._shadow_rays(
+        *_shadow_args(a, seed, it, compact)))
+    w_dir, w_exists, w_rays = _jax_shadow_rays(a, seed, it, compact)
+    np.testing.assert_array_equal(exists, w_exists)
+    assert rays.shape == w_rays.shape == (-(-n // 128) * 128, 8)
+    np.testing.assert_array_equal(rays[n:], w_rays[n:])
+    kept = (exists & a["hit"]) if compact else np.ones(n, bool)
+    np.testing.assert_array_equal(rays[:n][~kept], w_rays[:n][~kept])
+    np.testing.assert_allclose(rays[:n][kept], w_rays[:n][kept], rtol=0,
+                               atol=SUN_DIR_ATOL)
+    np.testing.assert_allclose(d_sun, w_dir, rtol=0, atol=SUN_DIR_ATOL)
+    assert 0 < kept.mean() < 1 or not compact
+
+
+@pytest.mark.parametrize("compact", [True, False])
+def test_shadow_rays_equal_the_unfused_chain(compact):
+    """The wrapper on CPU tensors equals the chain it replaces on the main
+    path (``_sun_sample``, ``sorting.park`` on ``exists & hit``,
+    ``tiles._pack_rays``) bit for bit, and counts no launch."""
+    n = 1000
+    a = shade_cuda.random_inputs(n, BOUNCES, seed=13)
+    args = _shadow_args(a, 4, 1, compact)
+    _build.reset_launches()
+    d_sun, exists, rays = shade_cuda.shadow_rays(*args)
+    assert set(_build.LAUNCHES.values()) == {0}
+    w_dir, org, w_exists = shade_cuda._sun_sample(*args[:5], *args[6:9])
+    dirn = w_dir
+    if compact:
+        org, dirn = psorting.park(org, w_dir, w_exists & args[5], BOX)
+    w_rays, _ = ptiles._pack_rays(org, dirn)
+    for got, want in ((d_sun, w_dir), (exists, w_exists), (rays, w_rays)):
+        assert got.dtype == want.dtype and torch.equal(got, want)
 
 
 def _jax_shade(a, cfg, has_sun, it):
@@ -186,11 +263,10 @@ def test_wrappers_run_plain_on_cpu():
     _build.reset_launches()
     got = shade_cuda.shade(cfg, 2, state, h, mat, env, sun, SUN_ENERGY)
     want = shade_cuda._shade(cfg, 2, state, h, mat, env, sun, SUN_ENERGY)
-    s_got = shade_cuda.sun_sample(0, 2, state.pixel_ids, state.sample_ids,
-                                  state.alive, h.normal, h.position, sun_consts)
-    s_want = shade_cuda._sun_sample(0, 2, state.pixel_ids, state.sample_ids,
-                                    state.alive, h.normal, h.position,
-                                    sun_consts)
+    s_args = (0, 2, state.pixel_ids, state.sample_ids, state.alive, h.hit,
+              h.normal, h.position, sun_consts, ((30.0, 20.0, 10.0), 0.5))
+    s_got = shade_cuda.shadow_rays(*s_args)
+    s_want = shade_cuda._shadow_rays(*s_args)
     assert set(_build.LAUNCHES.values()) == {0}
     for x, y in zip((*got, *s_got), (*want, *s_want)):
         assert torch.equal(x, y)

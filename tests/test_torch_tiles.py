@@ -60,6 +60,76 @@ def test_attach_tiles_bit_identical(spec):
     np.testing.assert_array_equal(got.pboxes, ref.pboxes)
 
 
+def _pack_scene(spec):
+    """A JAX package scene for the pack.  "crafted": ``synthetic:1700``
+    (1,792 triangles: 4 tiles, the last one part padding) with a fifth of
+    its triangles invalid and every coordinate drawn from {-0, +0, s},
+    s = +1 in even tiles and -1 in odd ones, so that box corners tie at
+    zeros of both signs and many triangles are degenerate."""
+    if spec == "crafted":
+        fs, static = load_synthetic("synthetic:1700")
+        rng = np.random.default_rng(3)
+        n = fs.tri_a.shape[0]
+        s = np.where((np.arange(n) // tiles.TT) % 2 == 0, 1.0, -1.0)[:, None]
+
+        def coords():
+            v = rng.choice(np.array([-0.0, 0.0, 1.0], np.float32), (n, 3))
+            return np.where(v == 1.0, s, v).astype(np.float32)
+
+        return fs._replace(tri_a=coords(), tri_e1=coords(), tri_e2=coords(),
+                           tri_valid=rng.random(n) < 0.8), static
+    load = load_arch if spec.startswith("arch") else load_synthetic
+    fs, static = load(spec)
+    if spec.startswith("arch"):
+        fs, static = build_bvh(fs, static)
+    return fs, static
+
+
+@pytest.mark.parametrize("spec", ["arch:2000", "synthetic:2000", "synthetic:1700",
+                                  "crafted"])
+def test_pack_tris_bit_identical(spec):
+    """The device pack (``tiles.pack_tris``, here on CPU tensors) equals the
+    host pack of both packages (``attach_tiles``) bit for bit.  The JAX
+    package's own in-call ``pack_tris`` is XLA's rounding of the same
+    formulas (on the CPU it differs from its ``attach_tiles`` by up to a few
+    thousand ulps where products cancel): its boxes are equal, its rows
+    within rtol 1e-3 / atol 1e-5."""
+    fs, static = _pack_scene(spec)
+    ref = kp.attach_tiles(fs)
+    got_tiles, got_boxes = tiles.pack_tris(to_device(port_scene(fs, static)[0], "cpu"))
+    assert got_tiles.dtype == torch.float32 and got_tiles.is_contiguous()
+    for got, want in ((got_tiles, ref.ptiles), (got_boxes, ref.pboxes)):
+        assert got.shape == want.shape
+        np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))
+    j_tiles, j_boxes = kp.pack_tris(fs._replace(
+        **{k: jnp.asarray(getattr(fs, k)) for k in ("tri_a", "tri_e1", "tri_e2",
+                                                      "tri_valid")}))
+    np.testing.assert_array_equal(got_boxes.numpy(), np.asarray(j_boxes))
+    np.testing.assert_allclose(got_tiles.numpy(), np.asarray(j_tiles), rtol=1e-3,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("spec", ["arch:2000", "synthetic:1700"])
+def test_dropped_tiles_are_packed_in_the_call(spec):
+    """``closest``, ``any_hit`` and ``any_hit_rows`` on a scene whose tiles
+    were dropped (or packed at another TT) equal the same calls with the
+    tiles attached: the planned path (arch, 10 tiles) and the small one."""
+    fs, static = port_scene(*_pack_scene(spec))
+    fs_t = to_device(tiles.attach_tiles(fs), "cpu")
+    orig, dirn = _ray_sets(fs_t, static)[1]
+    rays, _ = tiles._pack_rays(orig, dirn)
+    r = orig.shape[0]
+    want_h = intersect_cuda.closest(fs_t, orig, dirn)
+    want_a = intersect_cuda.any_hit(fs_t, orig, dirn)
+    assert 0 < float(want_a.float().mean()) < 1
+    for ptiles in (torch.zeros((0, 16, 1)), fs_t.ptiles[:, :, :256]):
+        bare = fs_t._replace(ptiles=ptiles, pboxes=torch.zeros((0, 8)))
+        for g, w in zip(intersect_cuda.closest(bare, orig, dirn), want_h):
+            assert torch.equal(g, w)
+        assert torch.equal(intersect_cuda.any_hit(bare, orig, dirn), want_a)
+        assert torch.equal(intersect_cuda.any_hit_rows(bare, rays, r), want_a)
+
+
 def test_pack_rays_matches(arch):
     fs, static = arch
     for orig, dirn in _ray_sets(fs, static):
