@@ -60,6 +60,22 @@ Phases (any failure raises, and the exit code is then non-zero):
 9. the bench path: ``ptx_torch.bench.run_bench`` with the headline, the two
    tile-traversal rooflines and the brute roofline, its JSON on a line of
    its own, with every kernel's launch count.
+10. the differentiable path (``ptx_torch.diff``) on ``arch:300000`` at the
+   JAX bench's backward shape, 128x128, 4 spp, 4 bounces: 65,536 rays in
+   two 32,768-ray chunks of ``make_batch_value_and_grad_fn``.  (a) Its
+   route, the general scan (the CUDA plan and sweeps, the plain shade),
+   against the fast path (the fused kernels' forward: plan, closest, any,
+   shadow-ray setup and shade launch; the plain shade's backward at the
+   recorded hits) for albedo, emission, roughness and sun energy: the
+   images within the image tolerance, each gradient finite and within
+   ROUTE_REL_L2 (pixels where a Monte Carlo decision flipped are left
+   out), each route's forward time against its value and gradient; (b)
+   ``tri_a`` through the general scan: finite, not all zero, and with
+   ``split_geom_grad`` off equal up to summation order; at 32x32, 1 spp
+   against the brute sweep (winner flips counted); (c) 3 Adam steps
+   on albedo, emission and sun energy (the loss must fall) and 2 on
+   ``tri_a``, loss and ms per step; (d) the two backward bench rows with
+   their peak device memory.
 Every kernel's bound (the least time the card could take for the work of
 the timed launch: its operations at the float32 peak or its bytes at the
 HBM rate, whichever is larger) is computed from that launch's inputs.
@@ -71,6 +87,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -885,6 +902,299 @@ def check_png(path, width, height):
         raise AssertionError(f"{path} is {w}x{h}, expected {width}x{height}")
 
 
+# The differentiable path (phase 10): the bench's backward scene and shape
+# (ptx_torch.bench.BACKWARD_SCENE / BACKWARD_SHAPE); the vertex check
+# against the brute sweep at a smaller frame; Adam steps.
+DIFF_SMALL = dict(width=32, height=32, samples=1, bounces=4)
+DIFF_FIELDS = ("mat_albedo", "mat_emissive", "mat_roughness", "sun_energy")
+OPT_FIELDS = ("mat_albedo", "mat_emissive", "sun_energy")
+OPT_STEPS, OPT_LR, VERTEX_STEPS, VERTEX_LR = 3, 0.01, 2, 1e-3
+# Gradients of two routes through the same torch shade code (the general
+# scan and the fast path; split_geom_grad on and off): they differ only in
+# the order of the backward's atomic scatter-adds, so the bound is
+# tests/test_torch_diff.py's for the two routes (rtol 1e-5).
+ROUTE_REL_L2 = 1e-5
+# The tile traversal against the brute sweep: at a near tie a winner may
+# differ (counted on the camera rays only) and move a pixel's gradient to
+# another triangle; the bound is tests/test_torch_inverse.py's for two
+# implementations.
+TRAVERSAL_REL_L2 = 1e-3
+# The kernels the fast path's forward and the general scan must launch.
+FAST_PATH_KERNELS = MAIN_PATH_KERNELS
+SCAN_KERNELS = ("exact_gate", "closest", "any")
+
+
+def chunk_value_and_grad(integrate, fs, params, target, cfg, chunk_px):
+    """The objective of ``inverse.make_batch_value_and_grad_fn`` (the MSE
+    of each pixel's mean over ``cfg.samples``, the samples in one launch,
+    pixel chunks of ``chunk_px``) through ``integrate``: ``(loss, grads,
+    the per-pixel mean radiance)``.  The parameters are the scene's own, so
+    its attached tiles stay current."""
+    import torch
+
+    from ptx_torch.diff.inverse import inject_params
+
+    dev, k = target.device, cfg.samples
+    leaves = {f: v.detach().requires_grad_(True) for f, v in params.items()}
+    tot, grads, image = 0.0, dict.fromkeys(leaves, 0.0), []
+    smp = torch.arange(k, dtype=torch.int32, device=dev).repeat_interleave(chunk_px)
+    for c in range(cfg.width * cfg.height // chunk_px):
+        pix = c * chunk_px + torch.arange(chunk_px, dtype=torch.int32, device=dev)
+        radiance, _ = integrate(inject_params(fs, leaves, keep_tiles=True),
+                                pix.repeat(k), smp)
+        mean = radiance.reshape(k, chunk_px, 3).sum(0) / k
+        v = torch.sum((mean - target[c * chunk_px:(c + 1) * chunk_px]) ** 2)
+        g = torch.autograd.grad(v, list(leaves.values()))
+        tot = tot + v.detach()
+        grads = {f: grads[f] + gi for f, gi in zip(leaves, g)}
+        image.append(mean.detach())
+    denom = float(cfg.width * cfg.height * 3)
+    return tot / denom, {f: g / denom for f, g in grads.items()}, torch.cat(image)
+
+
+def rel_l2(got, want) -> float:
+    return float((got - want).norm() / want.norm().clamp(min=1e-30))
+
+
+def timed(fn, dev):
+    """``(result, ms)`` of one call, the host clock around a synchronize."""
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def counted(fn, dev, kernels, tag):
+    """``fn()`` with the launch counts set to 0 just before and read just
+    after; on the card, raises unless each of ``kernels`` launched."""
+    from ptx_torch.kernels import _build
+
+    _build.reset_launches()
+    out, ms = timed(fn, dev)
+    launches = dict(_build.LAUNCHES)
+    log(f"{tag}: {ms:.1f} ms, launches {launches}")
+    if dev.type == "cuda":
+        for name in kernels:
+            if launches[name] <= 0:
+                raise AssertionError(f"{tag} never launched the {name} kernel")
+    return out, ms, launches
+
+
+def forward_ms(integrate, fs, cfg, chunk_px, dev) -> float:
+    """ms of the integrator's forward alone (no autograd) over the frame's
+    chunks, as the value and gradient launches them."""
+    import torch
+
+    k = cfg.samples
+    smp = torch.arange(k, dtype=torch.int32, device=dev).repeat_interleave(chunk_px)
+
+    def run():
+        with torch.no_grad():
+            for c in range(cfg.width * cfg.height // chunk_px):
+                pix = c * chunk_px + torch.arange(chunk_px, dtype=torch.int32,
+                                                  device=dev)
+                integrate(fs, pix.repeat(k), smp)
+
+    return timed(run, dev)[1]
+
+
+def check_diff(dev, scene=None, shape=None, small=DIFF_SMALL, smi=""):
+    """Phase 10, the differentiable path on ``scene`` at ``shape`` (default:
+    the bench's backward rows'): (a) the general scan (the CUDA sweeps,
+    the plain shade), the route of ``make_batch_value_and_grad_fn``,
+    against the fast path (fused kernels forward, plain-shade backward) for
+    DIFF_FIELDS; (b) ``tri_a`` through the general scan with
+    ``split_geom_grad`` and without, and at ``small`` against the brute
+    sweep; (c) Adam steps; (d) the two backward bench rows on ``scene`` at
+    ``shape`` with their peak memory.  Every failure raises."""
+    import torch
+
+    from ptx_torch import bench, geometry
+    from ptx_torch import render as R
+    from ptx_torch.diff import inverse
+    from ptx_torch.diff.fast import make_fast_diff_integrator
+    from ptx_torch.integrator.wavefront import make_integrator
+    from ptx_torch.kernels import intersect_cuda
+    from ptx_torch.kernels.intersect import brute_closest
+    from ptx_torch.kernels.tiles import HIT_T, SMALL_TILES, _pack_rays
+    from ptx_torch.scene.camera import generate_rays
+
+    cuda = dev.type == "cuda"
+    scene = scene or bench.BACKWARD_SCENE
+    cfg = R.RenderConfig(intersector="pallas", **(shape or bench.BACKWARD_SHAPE))
+    fs, static = R.ensure_accel(*R.load_scene(scene), cfg, device=dev)
+    n_pixels, k = cfg.width * cfg.height, cfg.samples
+    chunk_px = inverse._largest_divisor_leq(n_pixels, R.MAX_RAYS_PER_LAUNCH // k)
+    target = torch.zeros((n_pixels, 3), device=dev)
+    log(f"differentiable path: {scene} {cfg.width}x{cfg.height} {k} spp "
+        f"{cfg.bounces} bounces, {n_pixels * k} rays in "
+        f"{n_pixels // chunk_px} chunks of {chunk_px * k}")
+    if R.resolve_shader(cfg) != "pallas":
+        raise AssertionError("the fast path's forward would not take the kernels")
+
+    # (a) The general scan (CUDA sweeps, plain shade), the route of
+    # make_batch_value_and_grad_fn, against the fast path.
+    params = {f: getattr(fs, f) for f in DIFF_FIELDS}
+    vg = inverse.make_batch_value_and_grad_fn(static, cfg, target, k,
+                                              param_fields=DIFF_FIELDS)
+    vg(params, fs)  # warm-up
+    (value, grads), _, launches = counted(lambda: vg(params, fs), dev,
+                                          SCAN_KERNELS, "value and grad")
+    if cuda and (launches["shade"] or launches["sun"]):
+        raise AssertionError("the general scan launched the fused shade")
+    closest, any_hit = R.get_backend(static, cfg, dev)
+    fast = make_fast_diff_integrator(static, cfg, closest, any_hit)
+    general = make_integrator(static, cfg, closest, any_hit, differentiable=True)
+    routes = {}
+    for name, integ, kernels in (("fast", fast, FAST_PATH_KERNELS),
+                                 ("general", general, SCAN_KERNELS)):
+        routes[name], ms, launches = counted(
+            lambda: chunk_value_and_grad(integ, fs, params, target, cfg, chunk_px),
+            dev, kernels, f"{name} route value and grad")
+        if name == "fast" and cuda and launches["sun"] != launches["shade"]:
+            raise AssertionError("the fast path ran the shadow-ray setup "
+                                 f"{launches['sun']} times in "
+                                 f"{launches['shade']} steps")
+        if name == "general" and cuda and (launches["shade"] or launches["sun"]):
+            raise AssertionError("the general scan launched the fused shade")
+        fwd = forward_ms(integ, fs, cfg, chunk_px, dev)
+        log(f"{name} route: the forward alone {fwd:.1f} of {ms:.1f} ms of the "
+            f"value and grad, backward {100 * (1 - fwd / ms):.0f} % ({smi})")
+    v_f, g_f, img_f = routes["fast"]
+    v_g, g_g, img_g = routes["general"]
+    if float(v_g) != float(value) or any(rel_l2(g_g[f], grads[f]) > ROUTE_REL_L2
+                                         for f in DIFF_FIELDS):
+        raise AssertionError("make_batch_value_and_grad_fn disagrees with the "
+                             "general scan's own chunks")
+    d = (img_f - img_g).abs().amax(-1)
+    flipped = d > COLOR_ATOL
+    share = 1.0 - float(flipped.float().mean())
+    log(f"fast vs general primal: |dcolor|<={COLOR_ATOL} on {share:.5f} of "
+        f"pixels, loss {float(v_f):.7g} vs {float(v_g):.7g}")
+    if share < MIN_PIXEL_SHARE:
+        raise AssertionError("the fast path's primal disagrees with the scan")
+    if bool(flipped.any()):
+        # Where a Monte Carlo decision flipped, each route's own radiance is
+        # the target: no residual, no gradient from those pixels.
+        _, g_f, _ = chunk_value_and_grad(
+            fast, fs, params, torch.where(flipped[:, None], img_f, target), cfg,
+            chunk_px)
+        _, g_g, _ = chunk_value_and_grad(
+            general, fs, params, torch.where(flipped[:, None], img_g, target),
+            cfg, chunk_px)
+    for f in DIFF_FIELDS:
+        err = rel_l2(g_f[f], g_g[f])
+        big = float(g_g[f].abs().max())
+        log(f"  d loss / d {f}: fast vs general relative L2 {err:.3g} "
+            f"({int(flipped.sum())} pixels left out), max |grad| {big:.4g}")
+        if not (bool(torch.isfinite(g_f[f]).all())
+                and bool(torch.isfinite(g_g[f]).all())):
+            raise AssertionError(f"d loss / d {f} is not finite")
+        if err > ROUTE_REL_L2 or big == 0.0:
+            raise AssertionError(f"d loss / d {f}: fast vs general {err}")
+
+    # (b) tri_a through the general scan, split_geom_grad and not.
+    tri = {"tri_a": fs.tri_a}
+    vg_t = inverse.make_batch_value_and_grad_fn(static, cfg, target, k,
+                                                param_fields=("tri_a",))
+    vg_t(tri, fs)  # warm-up
+    (v_t, g_t), _, _ = counted(lambda: vg_t(tri, fs), dev, SCAN_KERNELS,
+                               "vertex value and grad (split_geom_grad)")
+    g_t = g_t["tri_a"]
+    if not bool(torch.isfinite(g_t).all()) or float(g_t.abs().max()) == 0.0:
+        raise AssertionError("d loss / d tri_a is not finite or all zero")
+    unsplit = make_integrator(static, cfg, *intersect_cuda.make_backend(False),
+                              differentiable=True)
+    v_u, g_u, _ = chunk_value_and_grad(unsplit, fs, tri, target, cfg, chunk_px)
+    err = rel_l2(g_u["tri_a"], g_t)
+    log(f"  d loss / d tri_a: {int((g_t != 0).any(-1).sum())} of "
+        f"{g_t.shape[0]} vertices moved, max |grad| {float(g_t.abs().max()):.4g}; "
+        f"without split_geom_grad: loss {float(v_u):.7g} vs {float(v_t):.7g}, "
+        f"relative L2 {err:.3g}")
+    if float(v_u) != float(v_t) or err > ROUTE_REL_L2:
+        raise AssertionError("split_geom_grad changed the vertex gradient")
+    # At a smaller frame against the brute sweep: the winners of the camera
+    # rays (only near ties may differ), the losses and the vertex gradients.
+    out = {}
+    for name in ("pallas", "brute"):
+        c = R.RenderConfig(intersector=name, **small)
+        t_s = torch.zeros((c.width * c.height, 3), device=dev)
+        out[name] = timed(lambda: inverse.make_batch_value_and_grad_fn(
+            static, c, t_s, c.samples, param_fields=("tri_a",))(tri, fs), dev)
+    pix = torch.arange(small["width"] * small["height"], dtype=torch.int32,
+                       device=dev)
+    orig, dirn = generate_rays(fs, pix, torch.zeros_like(pix), small["width"],
+                               small["height"])
+    with torch.no_grad():
+        rays, _ = _pack_rays(orig.contiguous(), dirn)
+        if fs.ptiles.shape[0] <= SMALL_TILES:
+            t_k, tri_k = intersect_cuda.closest_small(rays, fs.ptiles)
+        else:
+            t_k, tri_k = intersect_cuda.closest_sweep(
+                *intersect_cuda._plan_tiles(rays, fs.pboxes), rays, fs.ptiles)
+        _, tri_b, _, _, hit_b = brute_closest(fs, orig, dirn)
+    r = pix.shape[0]
+    hit_k, tri_k = t_k[:r] < HIT_T, tri_k[:r].long()
+    flipped_rays = (hit_k & hit_b & (tri_k != tri_b.long())).nonzero()[:, 0]
+    flips = int(flipped_rays.numel())
+    if flips:
+        o, dd = orig[flipped_rays], dirn[flipped_rays]
+        t_two = [geometry.moller_trumbore(o, dd, fs.tri_a[w], fs.tri_e1[w],
+                                          fs.tri_e2[w])[0]
+                 for w in (tri_k[flipped_rays], tri_b[flipped_rays].long())]
+        tie = float(((t_two[0] - t_two[1]).abs()
+                     / t_two[1].abs().clamp(min=1e-30)).max())
+        if tie > TIE_RTOL:
+            raise AssertionError(f"a winner differs from the brute sweep's by "
+                                 f"rel t {tie}, not a near tie")
+    err = rel_l2(out["pallas"][0][1]["tri_a"], out["brute"][0][1]["tri_a"])
+    log(f"  {small['width']}x{small['height']} {small['samples']} spp tri_a, "
+        f"tile traversal vs brute: loss {float(out['pallas'][0][0]):.7g} vs "
+        f"{float(out['brute'][0][0]):.7g}, gradient relative L2 {err:.3g} "
+        f"({out['pallas'][1]:.0f} vs {out['brute'][1]:.0f} ms); camera rays: "
+        f"{flips} winners differ (near ties), hit masks differ on "
+        f"{int((hit_k != hit_b).sum())}")
+    if err > TRAVERSAL_REL_L2:
+        raise AssertionError(f"vertex gradient of the tile traversal vs brute {err}")
+
+    # (c) Adam steps from the demo's initial guesses against the scene's own
+    # image: the loss before each step, ms per step.
+    sample_fn = R.make_sample_fn(static, cfg, dev)
+    with torch.no_grad():
+        image = sum(sample_fn(fs, s)[0] for s in range(k)) / k
+    for fields, steps, lr in ((OPT_FIELDS, OPT_STEPS, OPT_LR),
+                              (("tri_a",), VERTEX_STEPS, VERTEX_LR)):
+        init = {f: inverse._DEMO_INITS[f][0](fs) for f in fields}
+        clip = {f: inverse._DEMO_INITS[f][1] for f in fields
+                if inverse._DEMO_INITS[f][1] is not None}
+        marks = [time.perf_counter()]
+
+        def progress(step, val):
+            marks.append(time.perf_counter())
+            log(f"  optimize {','.join(fields)} step {step}: loss {val:.7g} "
+                f"({(marks[-1] - marks[-2]) * 1e3:.0f} ms)")
+
+        _, history = inverse.optimize(fs, static, cfg, image, init, steps=steps,
+                                      lr=lr, param_clip=clip, progress=progress)
+        if not all(map(math.isfinite, history)):
+            raise AssertionError(f"optimize {fields}: loss {history}")
+        if fields == OPT_FIELDS and not min(history[1:]) < history[0]:
+            raise AssertionError(f"optimize {fields} did not lower the loss: "
+                                 f"{history}")
+
+    # (d) The two backward bench rows, each with its peak device memory and
+    # what earlier phases still held when it started.
+    rows = bench.run_backward_benches(scene, cfg, dev, reps=3 if cuda else 1)
+    for row in rows.values():
+        log(f"backward row {json.dumps(row)} ({smi})")
+    return rows
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "ptx_torch")):
         print("chip_smoke.py must run from a checkout of the repository",
@@ -1104,6 +1414,10 @@ def main() -> int:
         if "error" in row or "skipped" in row:
             raise AssertionError(f"bench row {name}: {row}")
     log(json.dumps(result))
+
+    # 10. the differentiable path: counts reset just before each route's
+    # run, read just after.
+    check_diff(dev, smi=smi)
 
     if "jax" in sys.modules or "ptx" in sys.modules:
         raise AssertionError("the port imported jax or the JAX package")

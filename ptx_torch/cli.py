@@ -1,13 +1,19 @@
-"""Command line of the port: the ``render`` and ``bench`` subcommands.
+"""Command line of the port: the ``render``, ``bench`` and ``invert``
+subcommands.
 
 Usage:
     python -m ptx_torch.cli render --scene arch:300000 --out out.png \
         --width 256 --height 256 --samples 4 --bounces 4 [--device cuda]
-    python -m ptx_torch.cli bench [--device cpu]
+    python -m ptx_torch.cli bench [--backward] [--device cpu]
+    python -m ptx_torch.cli invert --scene arch:2000 --width 64 --height 64 \
+        --samples 2 --bounces 3 --steps 50 --params mat_albedo,mat_emissive
 
 ``bench`` measures the headline row (``arch:300000`` at 256x256, 16 spp,
 4 bounces unless flags say otherwise) and the extra rows of
-``ptx_torch.bench`` and prints one JSON line.
+``ptx_torch.bench`` and prints one JSON line; with ``--backward``, the two
+backward rows (grad-paths/s; 128x128, 4 spp, 4 bounces unless flags say
+otherwise).  ``invert`` perturbs the named scene parameters and recovers
+them by gradient descent (``ptx_torch.diff.inverse.run_inverse_demo``).
 """
 
 from __future__ import annotations
@@ -80,8 +86,7 @@ def _config_from_args(args):
 def _refuse_unported(args) -> None:
     from ptx_torch.render import NOT_PORTED
 
-    for flag in ("checkpoint", "env", "visualize", "distributed", "profile",
-                 "backward"):
+    for flag in ("checkpoint", "env", "visualize", "distributed", "profile"):
         if getattr(args, flag, False):
             raise NotImplementedError(NOT_PORTED[flag])
 
@@ -119,13 +124,33 @@ def cmd_render(args) -> int:
     return 0
 
 
+# The headline row's scene and size: bench's defaults without --backward.
+BENCH_DEFAULTS = dict(scene="arch:300000", width=256, height=256, samples=16,
+                      bounces=4)
+
+
 def cmd_bench(args) -> int:
-    from ptx_torch.bench import run_bench
+    from ptx_torch import bench
 
     _refuse_unported(args)
-    result = run_bench(scene=args.scene, cfg=_config_from_args(args),
-                       device=args.device)
+    defaults = (dict(scene=bench.BACKWARD_SCENE, **bench.BACKWARD_SHAPE)
+                if args.backward else BENCH_DEFAULTS)
+    for k, v in defaults.items():
+        if getattr(args, k) is None:
+            setattr(args, k, v)
+    run = bench.run_backward_benches if args.backward else bench.run_bench
+    result = run(scene=args.scene, cfg=_config_from_args(args), device=args.device)
     print(json.dumps(result))
+    return 0
+
+
+def cmd_invert(args) -> int:
+    from ptx_torch.diff.inverse import run_inverse_demo
+
+    _refuse_unported(args)
+    fields = tuple(f.strip() for f in args.params.split(",") if f.strip())
+    run_inverse_demo(args.scene, _config_from_args(args), steps=args.steps,
+                     lr=args.lr, param_fields=fields, device=args.device)
     return 0
 
 
@@ -138,10 +163,21 @@ def main(argv=None) -> int:
     p = sub.add_parser("bench")
     _add_render_args(p, scene_required=False)
     p.add_argument("--backward", action="store_true",
-                   help="grad-paths/s (not ported yet)")
-    # The headline configuration of ptx_torch.bench.
-    p.set_defaults(fn=cmd_bench, scene="arch:300000", width=256, height=256,
-                   samples=16, bounces=4, intersector="pallas")
+                   help="grad-paths/s of the two backward rows")
+    # Scene and size from BENCH_DEFAULTS or bench's backward shape unless
+    # given.
+    p.set_defaults(fn=cmd_bench, scene=None, width=None, height=None,
+                   samples=None, bounces=None, intersector="pallas")
+    p = sub.add_parser("invert")
+    _add_render_args(p)
+    p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--lr", type=float, default=0.05)
+    p.add_argument(
+        "--params", default="mat_albedo,mat_emissive",
+        help="comma-separated fields to recover (mat_albedo, mat_emissive, "
+             "mat_roughness, mat_metallic, sun_energy; tri_a, through the "
+             "Moller-Trumbore epilogue, with intersector pallas or brute)")
+    p.set_defaults(fn=cmd_invert)
     args = parser.parse_args(argv)
     return args.fn(args)
 

@@ -1,5 +1,5 @@
 """The wavefront path-tracing integrator (port of
-``ptx/integrator/wavefront.py``, forward only).
+``ptx/integrator/wavefront.py``).
 
 The wavefront is a ``RayState`` of [R] tensors.  Each iteration of a host
 loop runs one bounce on the live lanes: the trace stage (closest hit, then
@@ -9,6 +9,13 @@ sample, bounce, purpose), so lane order never changes a sample.  With
 survivor compaction (:func:`_chunked_forward`) the loop sorts the wavefront
 dead-last each iteration and steps only the live CHUNK-lane chunks; each
 live count read (``.item()``) is one device sync.
+
+Sampled directions and the lobe probability are detached (the JAX
+package's ``stop_gradient``: detached sampling), so the radiance is
+differentiable in the material, light and vertex parameters through the
+shading algebra and the Moller-Trumbore epilogue; ``make_integrator(
+differentiable=True)`` is the scan that torch autograd runs backward
+through.
 """
 
 from __future__ import annotations
@@ -38,11 +45,13 @@ class RayState(NamedTuple):
     sample_ids: torch.Tensor  # [R] int32
 
 
-def compute_hit_attrs(fs: FlatScene, tri, beta, gamma, at=None):
+def compute_hit_attrs(fs: FlatScene, tri, beta, gamma, at=None, geom=None):
     """Barycentric attribute interpolation at hit points: (position,
     normal, tangent, uv, mat_id).  Everything comes from one packed
     ``tri_attrs`` row gather when the scene has the pack (``at``: rows the
-    caller already gathered)."""
+    caller already gathered).  ``geom=(a, e1, e2)`` overrides the vertex
+    columns: the split-geometry-gradient path routes d/d vertices through
+    the [T, 3] leaves instead of the [T, 40] rows."""
     alpha_w = 1.0 - beta - gamma
     w0, w1, w2 = alpha_w[..., None], beta[..., None], gamma[..., None]
     if at is None and fs.tri_attrs.shape[0] == fs.tri_a.shape[0]:
@@ -59,6 +68,8 @@ def compute_hit_attrs(fs: FlatScene, tri, beta, gamma, at=None):
         uv0, uv1, uv2 = fs.uv0[tri], fs.uv1[tri], fs.uv2[tri]
         mat_id = fs.mat_id[tri]
         a, e1, e2 = fs.tri_a[tri], fs.tri_e1[tri], fs.tri_e2[tri]
+    if geom is not None:
+        a, e1, e2 = geom
     position = a + e1 * beta[..., None] + e2 * gamma[..., None]
     normal = pmath.normalize(n0 * w0 + n1 * w1 + n2 * w2)
     tangent = pmath.normalize(t0 * w0 + t1 * w1 + t2 * w2)
@@ -173,7 +184,7 @@ def make_trace_fn(static: SceneStatic, cfg: RenderConfig, closest: Callable,
             cos_theta = torch.cos(u(sampling.P_SUN_THETA) * fs.sun_angular_radius)
             d_sun = sampling.cone_vec(
                 u(sampling.P_SUN_PHI), cos_theta, fs.sun_dir.expand(state.dirn.shape)
-            )
+            ).detach()
             sun_exists = pmath.dot(h.normal, d_sun) > 0.0
             shadow_org = h.position + d_sun * pmath.EPS
             alive_hit = state.alive & h.hit
@@ -265,7 +276,7 @@ def make_shade_fn(static: SceneStatic, cfg: RenderConfig):
         roughness = torch.clamp(mat["roughness"], min=q.roughness_floor)
         mirror = pmath.reflect(-outcoming, n_shade)
         spec_prob = sampling.fresnel(outcoming, mirror, mat["ior"])
-        spec_prob = torch.maximum(spec_prob, mat["metallic"])
+        spec_prob = torch.maximum(spec_prob, mat["metallic"]).detach()
         specular_sample = u(sampling.P_LOBE) < spec_prob
 
         shading = alive & ~passthrough & ~backface & ~catcher_shadowed
@@ -294,7 +305,7 @@ def make_shade_fn(static: SceneStatic, cfg: RenderConfig):
         u1, u2 = u(sampling.P_BRDF_U), u(sampling.P_BRDF_V)
         d_spec = sampling.importance_specular(u1, u2, n_shade, outcoming, roughness)
         d_diff = sampling.importance_diffuse(u1, u2, n_shade)
-        d_new = torch.where(specular_sample[..., None], d_spec, d_diff)
+        d_new = torch.where(specular_sample[..., None], d_spec, d_diff).detach()
 
         up_facing = pmath.dot(n_shade, d_new) > 0.0
         brdf_i, diffuse_pdf, specular_pdf = _brdf_and_pdfs(
@@ -398,10 +409,20 @@ def run_forward(step: Callable, fs: FlatScene, state: RayState,
 
 
 def make_integrator(static: SceneStatic, cfg: RenderConfig, closest: Callable,
-                    any_hit: Callable):
-    """The forward integrator ``(fs, pixel_ids, sample_ids) -> (radiance
-    [R, 3], alpha [R])``.  ``closest(fs, orig, dirn) -> Hit`` and
-    ``any_hit(fs, orig, dirn) -> [R] bool`` are the intersection backend."""
+                    any_hit: Callable, differentiable: bool = False):
+    """The integrator ``(fs, pixel_ids, sample_ids) -> (radiance [R, 3],
+    alpha [R])``.  ``closest(fs, orig, dirn) -> Hit`` and ``any_hit(fs,
+    orig, dirn) -> [R] bool`` are the intersection backend.
+
+    ``differentiable``: the scan that autograd runs backward through
+    (``ptx/integrator/wavefront.py``'s ``differentiable=True``): up to
+    ``max_iters`` steps at full width, no compaction and no in-place
+    update of a tensor in the graph; dead lanes stay parked.  A step runs
+    only while some lane is alive (one device sync per step), which is
+    exact because a step is the identity on dead lanes.  Autograd saves
+    what the shade stage's backward needs; the sweeps run without it, so
+    the trace adds to the graph only what depends on a parameter (the
+    epilogue's gather and Moller-Trumbore recompute, for vertices)."""
     max_iters = max_iterations(static, cfg)
     do_compact = sorting.resolve_compact(static, cfg)
     trace = make_trace_fn(static, cfg, closest, any_hit, do_compact)
@@ -412,6 +433,12 @@ def make_integrator(static: SceneStatic, cfg: RenderConfig, closest: Callable,
 
     def integrate(fs: FlatScene, pixel_ids, sample_ids):
         state = initial_state(fs, cfg, pixel_ids, sample_ids)
-        return run_forward(step, fs, state, max_iters, static, do_compact)
+        if not differentiable:
+            return run_forward(step, fs, state, max_iters, static, do_compact)
+        for it in range(max_iters):
+            if not bool(state.alive.any()):
+                break
+            state = step(fs, it, state)
+        return state.radiance, state.alpha
 
     return integrate

@@ -20,7 +20,8 @@ tensors it launches its kernel (and counts the launch in
 ``_build.LAUNCHES``) or raises.  :func:`closest` / :func:`any_hit` pick the
 small sweep or the planned one and, for the closest hit, run the exact
 epilogue: one ``tri_attrs`` row gather, the Moller-Trumbore recompute of
-the winner, and ``hit = (t_trunc < HIT_T) & (t_exact < INF)``.
+the winner, and ``hit = (t_trunc < HIT_T) & (t_exact < INF)``.  Kernel
+outputs carry no gradient; the epilogue does.
 """
 
 from __future__ import annotations
@@ -370,46 +371,63 @@ def _scene_tiles(fs: FlatScene):
     return pack_tris(fs)
 
 
-def closest(fs: FlatScene, orig, dirn) -> Hit:
+def closest(fs: FlatScene, orig, dirn, split_geom_grad: bool = False) -> Hit:
     """Closest hit through the planned tile traversal, then the exact
-    epilogue: the sweep only selects the winner (truncated t)."""
+    epilogue: the sweep only selects the winner (truncated t).
+
+    The plan and the sweep run without autograd, on detached rays and
+    tiles (the JAX package's ``stop_gradient`` at its ``pallas_call``);
+    gradients flow through the epilogue: the ``tri_attrs`` row gather and
+    the Moller-Trumbore recompute of the winner.  ``split_geom_grad``
+    routes d/d vertices through the [T, 3] ``tri_a`` / ``tri_e1`` /
+    ``tri_e2`` leaves and detaches the [T, 40] row, whose backward would
+    otherwise scatter 40-wide rows; the values are the same."""
     r = orig.shape[0]
-    rays, _ = _pack_rays(orig, dirn)
-    tiles, boxes = _scene_tiles(fs)
-    if tiles.shape[0] <= SMALL_TILES:
-        t_trunc, tri = closest_small(rays, tiles)
-    else:
-        t_trunc, tri = closest_sweep(*_plan_tiles(rays, boxes), rays, tiles)
+    with torch.no_grad():
+        rays, _ = _pack_rays(orig, dirn)
+        tiles, boxes = _scene_tiles(fs)
+        if tiles.shape[0] <= SMALL_TILES:
+            t_trunc, tri = closest_small(rays, tiles)
+        else:
+            t_trunc, tri = closest_sweep(*_plan_tiles(rays, boxes), rays, tiles)
     t_trunc, tri = t_trunc[:r], tri[:r]
     n = fs.tri_a.shape[0]
     # Out-of-range winners (no-hit lanes of a padded last tile) are clamped
     # like a JAX gather; those lanes are masked by ``hit``.
     tri = torch.clamp(tri, 0, n - 1).long()
     at = fs.tri_attrs[tri] if fs.tri_attrs.shape[0] == n else None
-    if at is not None:
+    geom = None
+    if at is not None and split_geom_grad:
+        at = at.detach()
+        a, e1, e2 = fs.tri_a[tri], fs.tri_e1[tri], fs.tri_e2[tri]
+        geom = (a, e1, e2)
+    elif at is not None:
         a, e1, e2 = at[:, 25:28], at[:, 28:31], at[:, 31:34]
     else:
         a, e1, e2 = fs.tri_a[tri], fs.tri_e1[tri], fs.tri_e2[tri]
     t_exact, beta, gamma, _ = geometry.moller_trumbore(orig, dirn, a, e1, e2)
     hit = (t_trunc < HIT_T) & (t_exact < INF)
     t = torch.where(hit, t_exact, INF)
-    return attrs_from_indices(fs, t, tri, beta, gamma, hit, at=at)
+    return attrs_from_indices(fs, t, tri, beta, gamma, hit, at=at, geom=geom)
 
 
 def any_hit_rows(fs: FlatScene, rays, r: int):
     """Occlusion of rays already packed as ``[R_pad, 8]`` rows (the layout
     of ``_pack_rays``) of which the first ``r`` are real: [r] bool."""
-    tiles, boxes = _scene_tiles(fs)
-    if tiles.shape[0] <= SMALL_TILES:
-        hit = any_small(rays, tiles)
-    else:
-        hit = any_sweep(*_plan_tiles(rays, boxes), rays, tiles)
+    with torch.no_grad():
+        tiles, boxes = _scene_tiles(fs)
+        if tiles.shape[0] <= SMALL_TILES:
+            hit = any_small(rays, tiles)
+        else:
+            hit = any_sweep(*_plan_tiles(rays, boxes), rays, tiles)
     return hit[:r] > 0
 
 
 def any_hit(fs: FlatScene, orig, dirn):
     """Occlusion through the planned tile traversal: [R] bool."""
-    return any_hit_rows(fs, _pack_rays(orig, dirn)[0], orig.shape[0])
+    with torch.no_grad():
+        rays = _pack_rays(orig, dirn)[0]
+    return any_hit_rows(fs, rays, orig.shape[0])
 
 
 def closest_stats(fs: FlatScene, orig, dirn):
@@ -424,6 +442,14 @@ def closest_stats(fs: FlatScene, orig, dirn):
     return closest_sweep_stats(*_plan_tiles(rays, boxes), rays, tiles)
 
 
-def make_backend():
-    """(closest, any_hit) pair of the tile traversal."""
-    return closest, any_hit
+def make_backend(split_geom_grad: bool = False):
+    """(closest, any_hit) pair of the tile traversal.  ``split_geom_grad``:
+    see :func:`closest` (the gradient's route to the vertices; values
+    unchanged)."""
+    if not split_geom_grad:
+        return closest, any_hit
+
+    def closest_split(fs, orig, dirn):
+        return closest(fs, orig, dirn, split_geom_grad=True)
+
+    return closest_split, any_hit

@@ -1,6 +1,9 @@
 """The shade stage: two hand-written CUDA kernels, their plain torch
 versions, and the integrator that runs them (port of
-``ptx/kernels/shade_pallas.py``, forward only).
+``ptx/kernels/shade_pallas.py``).  The kernels compute no gradient: the
+fast differentiable path (``ptx_torch.diff.fast``) records the fused
+step's trace results and runs its backward through the plain shade
+stage.
 
 * :func:`shadow_rays` - ``csrc/shade.cu::ptx_shadow_rays``, plain version
   :func:`_shadow_rays`: the sun's cone sample (:func:`_sun_sample`) and the
@@ -511,13 +514,19 @@ def sun_constants(fs: FlatScene):
 
 
 def make_pallas_step(static: SceneStatic, cfg: RenderConfig,
-                     closest: Callable, any_hit: Callable):
+                     closest: Callable, any_hit: Callable, record: bool = False):
     """One bounce ``(fs, it, state, sun) -> RayState`` of the fused schedule
-    (``shade_pallas.make_pallas_step``, without ``record``); ``sun`` is
-    :func:`sun_constants` of ``fs``, or None without a sun.  The shadow
-    rays go to the tile traversal as the rows :func:`shadow_rays` packs
+    (``shade_pallas.make_pallas_step``); ``sun`` is :func:`sun_constants`
+    of ``fs``, or None without a sun.  The shadow rays go to the tile
+    traversal as the rows :func:`shadow_rays` packs
     (``intersect_cuda.any_hit_rows``); another ``any_hit`` gets their
-    origins and directions."""
+    origins and directions.
+
+    ``record=True``: the step also returns the bounce's trace results
+    ``(h, d_sun, sun_exists, shadow_hit)``, the outputs of the closest hit,
+    the shadow-ray setup and the any sweep it ran anyway (zeros without a
+    sun), which the fast differentiable path (``ptx_torch.diff.fast``)
+    saves for its backward."""
     do_compact = sorting.resolve_compact(static, cfg)
     park = sorting.park_constants(static) if do_compact else None
     if any_hit is intersect_cuda.any_hit:
@@ -526,7 +535,7 @@ def make_pallas_step(static: SceneStatic, cfg: RenderConfig,
         def any_rows(fs, rays, r):
             return any_hit(fs, rays[:r, 0:3], rays[:r, 3:6])
 
-    def step(fs: FlatScene, it: int, state: RayState, sun) -> RayState:
+    def step(fs: FlatScene, it: int, state: RayState, sun):
         # Dead lanes are parked so they sort into all-dead blocks and fail
         # every tile gate; the shade kernel masks their results.
         if do_compact:
@@ -538,7 +547,12 @@ def make_pallas_step(static: SceneStatic, cfg: RenderConfig,
         mat = textures.material_lookup(fs, h.mat_id, h.uv, static)
         env = _env_radiance(fs, static, cfg, state.dirn)
         if sun is None:
-            return shade(cfg, it, state, h, mat, env)
+            out = shade(cfg, it, state, h, mat, env)
+            if not record:
+                return out
+            n = state.alive.shape[0]
+            no = torch.zeros((n,), dtype=torch.bool, device=state.alive.device)
+            return out, (h, torch.zeros_like(state.dirn), no, no)
         # Occlusion matters only where the lane is alive with a hit and an
         # up-facing sun (``exists`` holds alive); with compaction the other
         # lanes' shadow rays are parked.
@@ -547,8 +561,9 @@ def make_pallas_step(static: SceneStatic, cfg: RenderConfig,
             h.hit, h.normal, h.position, sun[0], park,
         )
         shadow_hit = any_rows(fs, rays, state.alive.shape[0])
-        return shade(cfg, it, state, h, mat, env, (d_sun, exists, shadow_hit),
-                     sun[1])
+        out = shade(cfg, it, state, h, mat, env, (d_sun, exists, shadow_hit),
+                    sun[1])
+        return (out, (h, d_sun, exists, shadow_hit)) if record else out
 
     return step
 

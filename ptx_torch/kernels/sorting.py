@@ -6,6 +6,8 @@ each 128-ray block covers a small cell with a narrow cone and the tile gate
 culls; dead lanes are parked outside the scene, pointing away, so they sort
 into all-dead blocks that fail every gate.  The uint32 arithmetic of the
 JAX package is done in int64, where none of it overflows.
+:func:`make_sorting_backend` is the per-call sorting wrapper of a backend,
+which the loss functions of ``ptx_torch.diff`` reach.
 """
 
 from __future__ import annotations
@@ -93,3 +95,23 @@ def park_with(orig, dirn, keep, constants):
                                               device=orig.device)),
             torch.where(k, dirn, torch.tensor([p_dir] * 3, dtype=torch.float32,
                                               device=orig.device)))
+
+
+def make_sorting_backend(closest, any_hit, static: SceneStatic):
+    """Wrap a (closest, any_hit) backend pair with per-call ray sorting:
+    each call sorts its rays by :func:`ray_keys` (a stable sort, as
+    ``jnp.argsort`` is), runs the backend on the sorted rays, and returns
+    the results in the callers' order."""
+    lo, hi = static.aabb_lo, static.aabb_hi
+
+    def closest_sorted(fs, orig, dirn):
+        perm = torch.argsort(ray_keys(orig, dirn, lo, hi), stable=True)
+        h = closest(fs, orig[perm], dirn[perm])
+        inv = torch.argsort(perm)
+        return type(h)(*(x[inv] for x in h))
+
+    def any_sorted(fs, orig, dirn):
+        perm = torch.argsort(ray_keys(orig, dirn, lo, hi), stable=True)
+        return any_hit(fs, orig[perm], dirn[perm])[torch.argsort(perm)]
+
+    return closest_sorted, any_sorted

@@ -43,8 +43,6 @@ NOT_PORTED = {
     "visualize": "debug visualizations are not ported yet (ROADMAP Queue A item 11)",
     "distributed": "multi-device rendering is not ported yet (ROADMAP Queue A item 12)",
     "profile": "the port's profiling hook is not written yet (ROADMAP Queue A item 8)",
-    "backward": "the backward bench rows need ptx/diff, which is not ported yet "
-                "(ROADMAP Queue A item 10)",
 }
 
 
@@ -132,19 +130,43 @@ def ensure_accel(fs: FlatScene, static: SceneStatic, cfg: RenderConfig,
     return (to_device(fs, device) if device is not None else fs), static
 
 
-def get_backend(static: SceneStatic, cfg: RenderConfig, device):
-    """The intersection backend pair (closest, any_hit)."""
-    if resolve_intersector(static, cfg, device) == "brute":
+def get_backend(static: SceneStatic, cfg: RenderConfig, device, sort=None):
+    """The intersection backend pair (closest, any_hit).  ``sort=None``
+    takes the per-call sorting wrapper from :func:`resolve_sort`; pass
+    False when the caller keeps the wavefront sorted itself (the chunked
+    forward loop)."""
+    name = resolve_intersector(static, cfg, device)
+    if name == "brute":
         from ptx_torch.kernels.intersect import make_brute
 
-        return make_brute()
-    from ptx_torch.kernels import intersect_cuda
+        pair = make_brute()
+    else:
+        from ptx_torch.kernels import intersect_cuda
 
-    return intersect_cuda.make_backend()
+        pair = intersect_cuda.make_backend()
+    if resolve_sort(static, cfg, name) if sort is None else sort:
+        from ptx_torch.kernels import sorting
+
+        pair = sorting.make_sorting_backend(*pair, static)
+    return pair
+
+
+def resolve_sort(static: SceneStatic, cfg: RenderConfig, name: str) -> bool:
+    """Per-call ray sorting: ``cfg.sort_rays`` "on" and "off" force it;
+    "auto" sorts for the tile traversal of a scene of several tiles."""
+    from ptx_torch.kernels import sorting
+
+    if cfg.sort_rays == "on":
+        return True
+    if cfg.sort_rays == "off":
+        return False
+    return name == "pallas" and sorting.should_compact(static)
 
 
 def make_integrator_for(static: SceneStatic, cfg: RenderConfig, device):
-    closest, any_hit = get_backend(static, cfg, device)
+    # No per-call sorting wrapper: wherever resolve_sort would add one, the
+    # chunked forward loop (resolve_compact) keeps the wavefront sorted.
+    closest, any_hit = get_backend(static, cfg, device, sort=False)
     if resolve_shader(cfg) == "pallas":
         from ptx_torch.kernels.shade_cuda import make_pallas_integrator
 

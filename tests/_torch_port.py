@@ -3,7 +3,8 @@
 The port (``ptx_torch``) keeps its own copies of ``ptx.config`` and
 ``ptx.scene.flatten`` and refuses the JAX package's classes.  Parity tests
 that load a scene or build a config with the JAX package rebuild the port's
-``FlatScene`` / ``SceneStatic`` / ``RenderConfig`` from it, field by field.
+``FlatScene`` / ``SceneStatic`` / ``RenderConfig`` from it, field by field,
+and carry optimisation-parameter dicts both ways.
 """
 
 import dataclasses
@@ -35,3 +36,19 @@ def port_config(cfg):
               for f in dataclasses.fields(pconfig.RenderConfig)}
     fields["quirks"] = pconfig.Quirks(**dataclasses.asdict(cfg.quirks))
     return pconfig.RenderConfig(**fields)
+
+
+def port_params(params, device="cpu"):
+    """A JAX parameter dict ``{field: jnp array}`` as the port's
+    ``{field: torch tensor}`` on ``device``."""
+    import torch
+
+    return {k: torch.as_tensor(np.array(v), device=device) for k, v in params.items()}
+
+
+def jax_params(params):
+    """The port's parameter dict ``{field: torch tensor}`` as the JAX
+    package's ``{field: jnp array}``."""
+    import jax.numpy as jnp
+
+    return {k: jnp.asarray(v.detach().cpu().numpy()) for k, v in params.items()}

@@ -124,9 +124,38 @@ def test_bench_needs_the_card_unless_asked_for_the_cpu(monkeypatch):
     assert bench.card_peaks("cpu") == (None, None)
 
 
+def test_backward_rows_are_not_among_the_extras():
+    """``run_bench`` stores an extra row's error and goes on; the backward
+    rows run only through ``bench --backward``, where nothing is caught."""
+    for tiny in (True, False):
+        assert not [n for n in bench.extra_benches(tiny=tiny, device="cpu")
+                    if "backward" in n]
+
+
+def test_bench_backward_defaults_and_lets_a_failure_through(monkeypatch):
+    """``bench --backward`` without size flags runs bench's backward scene
+    and shape under the rows' own names, and a row that fails makes the
+    command fail."""
+    from ptx_torch import cli
+
+    calls = []
+
+    def fail(scene, cfg, fields, metric, reps, device):
+        calls.append((scene, cfg, fields, metric))
+        raise RuntimeError("the closest kernel failed to launch")
+
+    monkeypatch.setattr(bench, "run_backward_bench", fail)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        cli.main(["bench", "--backward", "--device", "cpu"])
+    ((scene, cfg, fields, metric),) = calls
+    assert (scene, metric) == (bench.BACKWARD_SCENE, bench.BACKWARD_METRIC)
+    assert {k: getattr(cfg, k) for k in bench.BACKWARD_SHAPE} == bench.BACKWARD_SHAPE
+    assert fields == ("mat_albedo", "mat_emissive")
+
+
 def test_bench_cli_smoke():
     """``ptx_torch.cli bench`` honours the size flags and prints one JSON
-    object; ``--backward`` names its ROADMAP item."""
+    object; with ``--backward``, the two backward rows in grad-paths/s."""
     base = [sys.executable, "-m", "ptx_torch.cli", "bench", "--scene",
             "arch:2000", "--width", "16", "--height", "16", "--samples", "2",
             "--bounces", "2", "--device", "cpu"]
@@ -139,7 +168,12 @@ def test_bench_cli_smoke():
     assert doc["config"].startswith("16x16 2 spp 2 bounces")
     out = subprocess.run(base + ["--backward"], capture_output=True, text=True,
                          timeout=300, cwd=ROOT, env=env)
-    assert out.returncode != 0 and "ROADMAP" in out.stderr
+    assert out.returncode == 0, out.stderr[-2000:]
+    doc = json.loads(out.stdout.strip().splitlines()[-1])
+    assert [row["metric"] for row in doc.values()] == [
+        "custom_backward", "custom_vertex_backward"]
+    assert all(row["unit"] == "grad-paths/s" and row["value"] > 0
+               for row in doc.values())
 
 
 # --------------------------------------------------------------------------

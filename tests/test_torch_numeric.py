@@ -64,6 +64,7 @@ import chip_smoke
 import ab_trees
 
 from ptx_torch import bench, render as R
+import ptx_torch.diff.fast, ptx_torch.diff.inverse
 fs, static = R.load_scene("synthetic:2000")
 res = R.render(fs, static, R.RenderConfig(width=16, height=16, samples=1,
                                           bounces=2), device="cpu")
@@ -74,7 +75,8 @@ print("ok")
 
 
 def test_port_imports_without_jax():
-    """Every module of the port, a render and the tiny bench, with ``jax``
+    """Every module of the port (``ptx_torch.diff`` included), a render and
+    the tiny bench (its backward rows run ``ptx_torch.diff``), with ``jax``
     and the JAX package ``ptx`` refused at import."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run([sys.executable, "-c", _WITHOUT_JAX_OR_PTX], cwd=root,
