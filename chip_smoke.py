@@ -76,6 +76,24 @@ Phases (any failure raises, and the exit code is then non-zero):
    on albedo, emission and sun energy (the loss must fall) and 2 on
    ``tri_a``, loss and ms per step; (d) the two backward bench rows with
    their peak device memory.
+11. the bvh path (``intersector="bvh"``): (a) the BVH walk's three entry
+   points (``ptx_bvh_closest`` / ``ptx_bvh_any`` / ``ptx_bvh_visits``,
+   ``csrc/bvh_traverse.cu``) against the plain walk
+   (``ptx_torch.accel.traverse``) bit for bit on every output, the visit
+   counts included, on ``arch:300000``: 32,768 camera rays, phase 3's
+   32,768 scattered rays (parked lanes included) and the strided shadow
+   rows of a fused step's first bounce; the closest winners against the
+   tile traversal (hit masks on >= MIN_AGREE of rays, each winner flip a
+   near tie); (b) each entry point timed, its bound from the set's own
+   visit and triangle-test counts; (c) ``render`` at 256x256, 4 spp, 4
+   bounces with ``intersector="bvh"``: the walk's, sun and shade kernels
+   launched and no tile kernel, its image against the tile traversal's,
+   its sample loop in turns with the tile traversal's (paths/s) and a
+   profiled sample; (d) 2 samples with a checkpoint, then 4, bit-equal to
+   the uninterrupted 4, the preview read back; (e) an env-lit glTF written
+   to a temp dir, the fused against the plain shade; (f) the ``bvh-depth``
+   view (its launches) and the CLI with ``--visualize bvh-depth``,
+   ``--checkpoint``, ``--metrics`` and ``--profile``.
 Every kernel's bound (the least time the card could take for the work of
 the timed launch: its operations at the float32 peak or its bytes at the
 HBM rate, whichever is larger) is computed from that launch's inputs.
@@ -138,6 +156,9 @@ REPLACES = {
     "shade": ("ptx_torch/csrc/shade.cu", "ptx/kernels/shade_pallas.py:239"),
     "closest_stats": ("ptx_torch/csrc/tile_sweep.cu",
                       "ptx/kernels/intersect_pallas.py:592"),
+    "bvh_closest": ("ptx_torch/csrc/bvh_traverse.cu", "ptx/accel/traverse.py:25"),
+    "bvh_any": ("ptx_torch/csrc/bvh_traverse.cu", "ptx/accel/traverse.py:25"),
+    "bvh_visits": ("ptx_torch/csrc/bvh_traverse.cu", "ptx/accel/traverse.py:102"),
 }
 # The kernels each path must launch.
 MAIN_PATH_KERNELS = ("exact_gate", "closest", "any", "sun", "shade")
@@ -157,6 +178,9 @@ CUDA_FUNCTIONS = {
     "any_small": ("small_sweep_kernel", ("<true>", "ILb1E")),
     "sun": ("shadow_rays_kernel", None),
     "shade": ("shade_kernel", ("<true>", "ILb1E")),
+    "bvh_closest": ("bvh_walk_kernel", ("<0>", "ILi0E")),
+    "bvh_any": ("bvh_walk_kernel", ("<1>", "ILi1E")),
+    "bvh_visits": ("bvh_walk_kernel", ("<2>", "ILi2E")),
 }
 # Operations per unit of work, for the bounds (csrc comments): a ray-box
 # slab test of tile_plan_kernel (per axis 2 subtractions, 2 multiplies,
@@ -1195,6 +1219,383 @@ def check_diff(dev, scene=None, shape=None, small=DIFF_SMALL, smi=""):
     return rows
 
 
+# The bvh path (phase 11): the BVH walk's three entry points, what the
+# path must launch and must not, and the work counts of its bound.
+BVH_KERNELS = ("bvh_closest", "bvh_any", "bvh_visits")
+BVH_PATH_KERNELS = ("bvh_closest", "bvh_any", "sun", "shade")
+TILE_KERNELS = ("exact_gate", "closest", "any", "closest_small", "any_small")
+# Operations of csrc/bvh_traverse.cu per node visited (the slab test: per
+# axis 2 subtractions, 2 multiplies, 2 NaN tests, min, max and the running
+# max and min; the entry clamp and three comparisons) and per triangle
+# tested (Moller-Trumbore: two cross products, three dot products, the
+# reciprocal and its select, the origin offset, three scalings, nine tests
+# and the comparison with the best).
+SLAB_OPS = 34
+MT_OPS = 58
+# A glTF of the env-lit check: a floor and two upright quads under an open
+# sky, no sun, camera looking down the floor.
+ENV_QUADS = (
+    ((-4, 0, -4), (4, 0, -4), (4, 0, 4), (-4, 0, 4)),
+    ((-1.5, 0, -1), (-0.5, 0, -1), (-0.5, 1.5, -1), (-1.5, 1.5, -1)),
+    ((0.5, 0, -2), (1.5, 0, -1.5), (1.5, 2, -1.5), (0.5, 2, -2)),
+)
+
+
+def bvh_work(fs, n_rays, out_bytes, reads, steps, tests=None):
+    """(operations, bytes) of a BVH walk of ``n_rays`` rays: ``steps``
+    nodes visited and ``tests`` triangles tested (this run's counts); the
+    rays read and ``out_bytes`` written once, and of each node and triangle
+    array only the rows this run's walk read (``reads``, the plain walk's
+    masks), each once."""
+    ops = int(steps.sum()) * SLAB_OPS
+    if tests is not None:
+        ops += int(tests.sum()) * MT_OPS
+    rows = sum(int(mask.sum()) * getattr(fs, nm)[0].numel()
+               * getattr(fs, nm).element_size() for nm, mask in reads.items())
+    return ops, n_rays * 24 + out_bytes + rows
+
+
+def tile_winners(fs, orig, dirn):
+    """The tile traversal's closest winner and final hit mask (the plan,
+    the closest sweep and the epilogue's Moller-Trumbore acceptance)."""
+    import torch
+
+    from ptx_torch import geometry
+    from ptx_torch.kernels import intersect_cuda as K
+    from ptx_torch.kernels.tiles import HIT_T
+
+    r = orig.shape[0]
+    rays, _ = K._pack_rays(orig, dirn)
+    tiles, boxes = K._scene_tiles(fs)
+    t_trunc, tri = K.closest_sweep(*K._plan_tiles(rays, boxes), rays, tiles)
+    tri = torch.clamp(tri[:r], 0, fs.tri_a.shape[0] - 1).long()
+    t_exact = geometry.moller_trumbore(orig, dirn, fs.tri_a[tri], fs.tri_e1[tri],
+                                       fs.tri_e2[tri])[0]
+    return tri, (t_trunc[:r] < HIT_T) & (t_exact < geometry.INF)
+
+
+def check_bvh_walk(fs, static, ray_sets, timing, reps):
+    """The three BVH entry points against the plain walk on every lane of
+    every output, ``steps`` included; the closest winners against the tile
+    traversal (near-tie flips allowed); each entry point timed on the set
+    the record names, its bound from that set's own visit counts and rows
+    read.  Returns the largest |difference| of each entry point over its
+    outputs (t, beta, gamma; hit; steps) on all sets (0: bit for bit)."""
+    import torch
+
+    from ptx_torch import geometry
+    from ptx_torch.accel import traverse
+    from ptx_torch.kernels import traverse_cuda as W
+
+    leaf = static.bvh_leaf_size
+    errs = dict.fromkeys(BVH_KERNELS, 0.0)
+    for tag, orig, dirn, timed in ray_sets:
+        r = orig.shape[0]
+        got = W.closest_walk(fs, orig, dirn, leaf)
+        want = traverse.walk(fs, orig, dirn, leaf, counts=True)
+        diffs = {nm: int(lane_diffs(a, b).sum()) for nm, a, b in
+                 zip(("t", "tri", "beta", "gamma", "hit"), got, want[:5])}
+        got_any = W.any_walk(fs, orig, dirn, leaf)
+        want_any = traverse.walk(fs, orig, dirn, leaf, any_hit=True, counts=True)
+        diffs["any hit"] = int((got_any != want_any[4]).sum())
+        got_v = W.visits(fs, orig, dirn)
+        want_v, reads_v = traverse.node_visits(fs, orig, dirn, counts=True)
+        diffs["steps"] = int((got_v != want_v).sum())
+        errs["bvh_closest"] = max([errs["bvh_closest"]] + [
+            float(torch.where(a == b, 0.0, (a - b).abs()).max())
+            for a, b in zip((got[0], got[2], got[3]), (want[0], want[2], want[3]))])
+        errs["bvh_any"] = max(errs["bvh_any"], float(
+            (got_any.int() - want_any[4].int()).abs().max()))
+        errs["bvh_visits"] = max(errs["bvh_visits"], float(
+            (got_v - want_v).abs().max()))
+        log(f"bvh/{tag} ({r} rays): differing lanes: "
+            + ", ".join(f"{nm} {n}" for nm, n in diffs.items())
+            + f"; hits {float(got[4].float().mean()):.4f}, nodes visited "
+            f"{float(want[5].float().mean()):.1f} (closest) / "
+            f"{float(want_v.float().mean()):.1f} (whole walk, max "
+            f"{int(want_v.max())}), triangles tested "
+            f"{float(want[6].float().mean()):.1f}")
+        if any(diffs.values()):
+            raise AssertionError(f"bvh/{tag}: the CUDA walk differs from the "
+                                 f"plain walk: {diffs}")
+        # Winners against the tile traversal: hit masks equal on >=
+        # MIN_AGREE of rays; where both hit, each differing winner a near
+        # tie (triangles sharing an edge tie exactly, and the two
+        # traversals test them in different orders).
+        tri_k, hit_k = tile_winners(fs, orig, dirn)
+        hit, tri = got[4], got[1].long()
+        share = float((hit == hit_k).float().mean())
+        flips = (tri != tri_k) & hit & hit_k
+        rel = 0.0
+        if bool(flips.any()):
+            ta = [geometry.moller_trumbore(
+                orig[flips], dirn[flips], fs.tri_a[w[flips]], fs.tri_e1[w[flips]],
+                fs.tri_e2[w[flips]])[0] for w in (tri, tri_k)]
+            rel = float(((ta[0] - ta[1]).abs() / ta[1].abs().clamp(min=1e-30)).max())
+        log(f"bvh/{tag}: hit masks vs the tile traversal equal on {share:.6f}; "
+            f"{int(flips.sum())} winner flips, largest rel t of a flip {rel:.2e}")
+        if share < MIN_AGREE or rel > TIE_RTOL:
+            raise AssertionError(f"bvh/{tag}: the walk's winners disagree with "
+                                 "the tile traversal")
+        if timed is None or timing is None:
+            continue
+        kind, args = timed
+        if kind == "bvh_closest":
+            work = bvh_work(fs, r, r * 17, want[7], want[5], want[6])
+            fns = (lambda: W.closest_walk(fs, *args, leaf),
+                   lambda: traverse.walk(fs, *args, leaf))
+        elif kind == "bvh_any":
+            work = bvh_work(fs, r, r, want_any[7], want_any[5], want_any[6])
+            fns = (lambda: W.any_walk(fs, *args, leaf),
+                   lambda: traverse.walk(fs, *args, leaf, any_hit=True))
+        else:
+            work = bvh_work(fs, r, r * 4, reads_v, want_v)
+            fns = (lambda: W.visits(fs, *args), lambda: traverse.node_visits(fs, *args))
+        time_kernel(timing, kind, f"bvh/{tag}", *fns, reps, work)
+    return errs
+
+
+def write_env_scene(tmp):
+    """A glTF (``ENV_QUADS``, no sun) and an .hdr sky written into ``tmp``:
+    (scene path, sky path)."""
+    import numpy as np
+
+    from ptx_torch.io.hdr import write_hdr
+
+    pos = np.array(ENV_QUADS, np.float32).reshape(-1, 3)
+    idx = np.concatenate([q * 4 + np.array([0, 1, 2, 0, 2, 3])
+                          for q in range(len(ENV_QUADS))]).astype(np.uint16)
+    blob = pos.tobytes() + idx.tobytes()
+    doc = {
+        "asset": {"version": "2.0"}, "scene": 0,
+        "scenes": [{"nodes": [0, 1]}],
+        "nodes": [{"mesh": 0},
+                  {"camera": 0, "translation": [0.0, 1.2, 3.5],
+                   "rotation": [-0.0871557, 0.0, 0.0, 0.9961947]}],
+        "meshes": [{"primitives": [{"attributes": {"POSITION": 0},
+                                    "indices": 1, "material": 0}]}],
+        "materials": [{"pbrMetallicRoughness": {
+            "baseColorFactor": [0.8, 0.7, 0.6, 1.0], "roughnessFactor": 0.5,
+            "metallicFactor": 0.2}}],
+        "accessors": [
+            {"bufferView": 0, "componentType": 5126, "count": len(pos),
+             "type": "VEC3", "min": pos.min(0).tolist(), "max": pos.max(0).tolist()},
+            {"bufferView": 1, "componentType": 5123, "count": len(idx),
+             "type": "SCALAR"}],
+        "bufferViews": [{"buffer": 0, "byteOffset": 0, "byteLength": pos.nbytes},
+                        {"buffer": 0, "byteOffset": pos.nbytes,
+                         "byteLength": idx.nbytes}],
+        "buffers": [{"byteLength": len(blob), "uri": "env_scene.bin"}],
+        "cameras": [{"type": "perspective",
+                     "perspective": {"yfov": 0.9, "znear": 0.01}}],
+    }
+    with open(os.path.join(tmp, "env_scene.bin"), "wb") as f:
+        f.write(blob)
+    path = os.path.join(tmp, "env_scene.gltf")
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    rng = np.random.default_rng(13)
+    sky = np.zeros((32, 64, 3), np.float32)
+    sky[:16] = [0.5, 0.7, 1.3]
+    sky[16:] = [0.08, 0.07, 0.06]
+    sky *= 0.5 + rng.random((32, 64, 1), np.float32)
+    sky_path = os.path.join(tmp, "sky.hdr")
+    write_hdr(sky_path, sky)
+    return path, sky_path
+
+
+def check_bvh_path(fs, static, fs_np, static_np, cfg, dev, smi, scattered,
+                   timing, errs):
+    """Phase 11: (a, b) the BVH walk's kernels against the plain walk and
+    timed; (c) the bvh path at full width, its launches, its image against
+    the tile traversal's and its sample loop in turns with it; (d) a resume
+    on the card; (e) an env-lit glTF, fused against plain shade; (f) the
+    debug view and the CLI.  Returns the launches of each BVH entry point
+    on its path."""
+    import numpy as np
+    import torch
+
+    from ptx_torch import debug
+    from ptx_torch import render as R
+    from ptx_torch.accel import traverse
+    from ptx_torch.integrator import accumulate
+    from ptx_torch.io import checkpoint as ck
+    from ptx_torch.io.hdr import read_hdr
+    from ptx_torch.io.png import read_png
+    from ptx_torch.kernels import _build
+    from ptx_torch.kernels import shade_cuda as S
+    from ptx_torch.kernels import traverse_cuda
+
+    # (a), (b): camera rays, phase 3's scattered rays (parked lanes
+    # included) and the strided shadow rows of a fused step's first bounce.
+    cam = camera_rays(fs, 256, 256, LAUNCH_RAYS, dev)
+    *_, sun_args = first_bounce(fs, static, cfg, LAUNCH_RAYS, dev)
+    rows = S.shadow_rays(*sun_args)[2]
+    shadow = (rows[:LAUNCH_RAYS, 0:3], rows[:LAUNCH_RAYS, 3:6])
+    if shadow[0].is_contiguous():
+        raise AssertionError("the shadow rows should be strided views")
+    errs.update(check_bvh_walk(fs, static, [
+        ("camera", *cam, ("bvh_visits", cam)),
+        ("scattered", *scattered, ("bvh_closest", scattered)),
+        ("shadow rows", *shadow, ("bvh_any", shadow)),
+    ], timing, reps=5))
+    torch.cuda.empty_cache()
+
+    # (c) the bvh path: counts reset just before, read just after.
+    cfg_b = dataclasses.replace(cfg, intersector="bvh")
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_b = R.render(fs_np, static_np, cfg_b, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    log(f"bvh path launches: {launches}")
+    for name in BVH_PATH_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"the bvh path never launched the {name} kernel")
+    for name in TILE_KERNELS:
+        if launches[name]:
+            raise AssertionError(f"the bvh path launched the {name} kernel")
+    if not np.isfinite(res_b.color).all() or res_b.image[..., :3].max() == 0:
+        raise AssertionError("bvh path image is black or not finite")
+    paths = cfg.width * cfg.height * cfg.samples
+    log(f"bvh path: {SLICE_SCENE} 256x256 4spp 4 bounces, render() {wall:.2f} s "
+        f"= {paths / wall:,.0f} paths/s incl. BVH and upload ({smi})")
+    accel = {"pallas": (fs, static),
+             "bvh": R.ensure_accel(fs_np, static_np, cfg_b, device=dev)}
+    images = {}
+    for name in ("pallas", "bvh", "bvh", "pallas"):
+        c = dataclasses.replace(cfg, intersector=name)
+        fs_c, st_c = accel[name]
+        sample_fn = R.make_sample_fn(st_c, c, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        images[name] = R.progressive_render(fs_c, st_c, c, sample_fn, None, 1, dev)
+        torch.cuda.synchronize()
+        steady = time.perf_counter() - t0
+        log(f"sample loop, intersector {name}: {steady:.3f} s = "
+            f"{paths / steady:,.0f} paths/s ({smi})")
+    n_dev, busy, wall_ms, top = profile_sample(
+        R.make_sample_fn(accel["bvh"][1], cfg_b, dev), accel["bvh"][0])
+    if n_dev:
+        log(f"profiled sample, intersector bvh: {n_dev} device kernels, device "
+            f"busy {busy:.1f} of {wall_ms:.1f} ms ({100 * busy / wall_ms:.0f} %) "
+            f"({smi})")
+        for name, (ms, n) in top:
+            log(f"  {ms:9.3f} ms {n:6d}x {name[:90]}")
+    else:
+        log("profiled sample, intersector bvh: the profiler saw no device "
+            "events; kernels per sample not measured")
+    for attr in ("color", "alpha", "image"):
+        if not np.array_equal(getattr(images["bvh"], attr), getattr(res_b, attr)):
+            raise AssertionError(f"bvh: the sample loop's {attr} differs from "
+                                 "render()'s")
+    color_share, alpha_share, image_share = image_agreement(res_b, images["pallas"])
+    log(f"bvh vs tile traversal, 256x256 4spp: |dcolor|<={COLOR_ATOL} on "
+        f"{color_share:.4f}, alpha equal on {alpha_share:.4f}, uint8 within 1 "
+        f"on {image_share:.4f}")
+    if min(color_share, alpha_share, image_share) < MIN_PIXEL_SHARE:
+        raise AssertionError("the bvh path's image disagrees with the tile path's")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (d) resume on the card: 2 samples with a checkpoint, then 4.
+        path = os.path.join(tmp, "render.ckpt.npz")
+        R.render(fs_np, static_np, dataclasses.replace(cfg_b, samples=2),
+                 device=dev, checkpoint_path=path)
+        loaded = ck.load(path)
+        preview = read_png(path + ".preview.png")
+        expect = accumulate.finalize(torch.as_tensor(loaded.color, device=dev),
+                                     torch.as_tensor(loaded.alpha, device=dev))
+        if loaded.samples_done != 2 or not np.array_equal(
+                preview, expect.cpu().numpy().reshape(256, 256, 4)):
+            raise AssertionError("the checkpoint's preview is not its finalize")
+        resumed = R.render(fs_np, static_np, cfg_b, device=dev,
+                           checkpoint_path=path)
+        for attr in ("color", "alpha", "image"):
+            if not np.array_equal(getattr(resumed, attr), getattr(res_b, attr)):
+                raise AssertionError(f"resumed {attr} differs from the "
+                                     "uninterrupted render")
+        log("resume on the card: 2 samples + checkpoint + 2 more equal the "
+            "uninterrupted 4 bit for bit; the preview equals finalize of the "
+            "checkpoint")
+
+        # (e) an env-lit glTF: the fused shade against the plain one.
+        scene, sky = write_env_scene(tmp)
+        fs_e, static_e = R.load_scene(scene, env_image=read_hdr(sky))
+        if static_e.env_tex < 0:
+            raise AssertionError("the env map did not reach the scene")
+        env_cfg = R.RenderConfig(width=64, height=64, samples=2, bounces=3)
+        out = {}
+        for shader in ("pallas", "xla"):
+            _build.reset_launches()
+            out[shader] = R.render(fs_e, static_e,
+                                   dataclasses.replace(env_cfg, shader=shader),
+                                   device=dev)
+            if shader == "pallas" and _build.LAUNCHES["shade"] <= 0:
+                raise AssertionError("the env-lit render never ran the shade kernel")
+        dark = R.render(*R.load_scene(scene), env_cfg, device=dev)
+        color_share, alpha_share, image_share = image_agreement(out["pallas"],
+                                                                out["xla"])
+        log(f"env-lit glTF 64x64 2spp, fused vs plain shade: |dcolor|<="
+            f"{COLOR_ATOL} on {color_share:.4f}, alpha equal on "
+            f"{alpha_share:.4f}, uint8 within 1 on {image_share:.4f}; mean "
+            f"color {out['pallas'].color.mean():.4f} (without the sky "
+            f"{dark.color.mean():.4f})")
+        if min(color_share, alpha_share, image_share) < MIN_PIXEL_SHARE:
+            raise AssertionError("env-lit: the fused shade disagrees with the plain one")
+        if np.abs(out["pallas"].color - dark.color).max() < 0.1:
+            raise AssertionError("env-lit: the sky does not light the image")
+
+        # (f) the bvh-depth view (counts reset just before, read just
+        # after), then the CLI.
+        _build.reset_launches()
+        view = debug.visualize(fs_np, static_np, cfg, "bvh-depth", dev)
+        launches["bvh_visits"] = _build.LAUNCHES["bvh_visits"]
+        if launches["bvh_visits"] <= 0 or view.shape != (256, 256, 4):
+            raise AssertionError("the bvh-depth view did not run the visits kernel")
+        # The view's one launch (all 65,536 primary rays) against the plain
+        # walk at that shape, and the view against the heat of plain counts.
+        prim = debug._primary_rays(accel["bvh"][0], cfg, dev)
+        got_v = traverse_cuda.visits(accel["bvh"][0], *prim)
+        want_v = traverse.node_visits(accel["bvh"][0], *prim)
+        errs["bvh_visits"] = max(errs["bvh_visits"],
+                                 float((got_v - want_v).abs().max()))
+        plain_view = debug._heat(want_v.cpu().numpy()).reshape(256, 256, 4)
+        log(f"bvh-depth view ({prim[0].shape[0]} rays in one launch): steps "
+            f"differ on {int((got_v != want_v).sum())} lanes; the view equals "
+            f"the heat of the plain counts: {np.array_equal(view, plain_view)}")
+        if not torch.equal(got_v, want_v) or not np.array_equal(view, plain_view):
+            raise AssertionError("bvh-depth: the visits kernel differs from the "
+                                 "plain walk at the view's shape")
+        cli = [sys.executable, "-m", "ptx_torch.cli", "render", "--scene",
+               SLICE_SCENE, "--width", "128", "--height", "96", "--bounces", "4"]
+        depth_png = os.path.join(tmp, "bvh_depth.png")
+        subprocess.run(cli + ["--samples", "1", "--visualize", "bvh-depth",
+                              "--out", depth_png],
+                       cwd=ROOT, check=True, timeout=600)
+        check_png(depth_png, 128, 96)
+        out_png, prof = os.path.join(tmp, "cli.png"), os.path.join(tmp, "trace")
+        run = subprocess.run(
+            cli + ["--samples", "2", "--intersector", "bvh", "--checkpoint",
+                   os.path.join(tmp, "cli.ckpt.npz"), "--metrics", "--profile",
+                   prof, "--out", out_png],
+            cwd=ROOT, check=True, timeout=600, capture_output=True, text=True)
+        check_png(out_png, 128, 96)
+        check_png(os.path.join(tmp, "cli.preview.png"), 128, 96)
+        traces = [f for f in os.listdir(prof) if f.endswith(".trace.json")]
+        with open(os.path.join(prof, traces[0])) as f:
+            events = json.load(f)["traceEvents"]
+        if "trace:" not in run.stderr or not events:
+            raise AssertionError("--metrics / --profile: no phase times or an "
+                                 "empty trace")
+        walks = sum("bvh_walk_kernel" in e.get("name", "") for e in events)
+        log(f"cli: --visualize bvh-depth, --checkpoint, --metrics, --profile "
+            f"ran; the trace holds {len(events)} events, {walks} of them walk "
+            f"kernels")
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "ptx_torch")):
         print("chip_smoke.py must run from a checkout of the repository",
@@ -1419,6 +1820,11 @@ def main() -> int:
     # run, read just after.
     check_diff(dev, smi=smi)
 
+    # 11. the bvh path: counts reset just before each path's run, read just
+    # after.
+    bvh_launches = check_bvh_path(fs, static, fs_np, static_np, cfg, dev, smi,
+                                  scattered, timing, errs)
+
     if "jax" in sys.modules or "ptx" in sys.modules:
         raise AssertionError("the port imported jax or the JAX package")
 
@@ -1426,7 +1832,8 @@ def main() -> int:
     for name, (source, replaces) in REPLACES.items():
         t = timing[name]
         n = (small_launches if name.endswith("_small") else
-             bench_launches if name == "closest_stats" else launches)[name]
+             bench_launches if name == "closest_stats" else
+             bvh_launches if name.startswith("bvh_") else launches)[name]
         record.append(dict(name=name, route="cuda", source=source,
                            replaces=replaces, launches=n,
                            max_abs_err=errs[name], ms=t["ms"],

@@ -3,12 +3,19 @@ subcommands.
 
 Usage:
     python -m ptx_torch.cli render --scene arch:300000 --out out.png \
-        --width 256 --height 256 --samples 4 --bounces 4 [--device cuda]
+        --width 256 --height 256 --samples 4 --bounces 4 [--device cuda] \
+        [--intersector bvh] [--checkpoint ck.npz [--checkpoint-every 5]] \
+        [--env sky.hdr] [--visualize bvh-depth] [--metrics] [--profile DIR]
     python -m ptx_torch.cli bench [--backward] [--device cpu]
     python -m ptx_torch.cli invert --scene arch:2000 --width 64 --height 64 \
         --samples 2 --bounces 3 --steps 50 --params mat_albedo,mat_emissive
 
-``bench`` measures the headline row (``arch:300000`` at 256x256, 16 spp,
+``render --checkpoint`` resumes from a compatible checkpoint and writes
+one (and a preview PNG beside ``--out``) every ``--checkpoint-every``
+samples; ``--visualize`` writes a debug view (``ptx_torch.debug``) in place
+of the beauty render; ``--metrics`` prints per-phase times; ``--profile DIR``
+writes a ``torch.profiler`` Chrome trace into DIR.  ``bench`` measures the
+headline row (``arch:300000`` at 256x256, 16 spp,
 4 bounces unless flags say otherwise) and the extra rows of
 ``ptx_torch.bench`` and prints one JSON line; with ``--backward``, the two
 backward rows (grad-paths/s; 128x128, 4 spp, 4 bounces unless flags say
@@ -50,11 +57,18 @@ def _add_render_args(p: argparse.ArgumentParser, scene_required: bool = True):
                    choices=["worker", "monolithic", "physical"])
     p.add_argument("--sort-rays", default="auto", choices=["auto", "on", "off"])
     p.add_argument("--config", help="JSON RenderConfig (overrides other flags)")
-    p.add_argument("--checkpoint")
-    p.add_argument("--env")
-    p.add_argument("--visualize")
+    p.add_argument("--checkpoint", help="checkpoint file for save/resume")
+    p.add_argument("--checkpoint-every", type=int, default=5)
+    p.add_argument("--env", help="environment map image (.hdr or LDR); "
+                                 "glTF scenes only")
+    p.add_argument("--visualize", choices=["depth", "normals", "bvh-depth",
+                                           "nan-check"],
+                   help="debug visualization instead of a beauty render")
     p.add_argument("--distributed", action="store_true")
-    p.add_argument("--profile", metavar="DIR")
+    p.add_argument("--profile", metavar="DIR",
+                   help="write a torch.profiler Chrome trace to DIR")
+    p.add_argument("--metrics", action="store_true",
+                   help="print per-phase timing/throughput at the end")
 
 
 def _config_from_args(args):
@@ -86,25 +100,44 @@ def _config_from_args(args):
 def _refuse_unported(args) -> None:
     from ptx_torch.render import NOT_PORTED
 
-    for flag in ("checkpoint", "env", "visualize", "distributed", "profile"):
-        if getattr(args, flag, False):
-            raise NotImplementedError(NOT_PORTED[flag])
+    if args.distributed:
+        raise NotImplementedError(NOT_PORTED["distributed"])
 
 
 def cmd_render(args) -> int:
+    import os
+
     import torch
 
-    from ptx_torch.io.png import write_png
     from ptx_torch import render as R
+    from ptx_torch.io.png import write_png
+    from ptx_torch.utils import Metrics, profiler_trace
 
     _refuse_unported(args)
 
     cfg = _config_from_args(args)
     device = torch.device(args.device)
+    env_image = None
+    if args.env:
+        from ptx_torch.io.hdr import load_env_image
+
+        env_image = load_env_image(args.env)
+        if args.scene.startswith(("synthetic:", "arch:")):
+            print(f"--env: {args.scene.split(':')[0]} scenes have no "
+                  "environment slot; the image is ignored", file=sys.stderr)
     t0 = time.time()
-    fs, static = R.load_scene(args.scene, quirks=cfg.quirks)
+    fs, static = R.load_scene(args.scene, quirks=cfg.quirks, env_image=env_image)
     print(f"loaded {static.n_tris} triangles, {static.n_materials} materials "
           f"in {time.time() - t0:.2f}s (sun={static.has_sun})", file=sys.stderr)
+
+    if args.visualize:
+        from ptx_torch.debug import visualize
+
+        write_png(args.out, visualize(fs, static, cfg, args.visualize, device))
+        print(f"wrote {args.visualize} visualization to {args.out}",
+              file=sys.stderr)
+        return 0
+
     shader = R.resolve_shader(cfg)
     print(f"device {device}: intersector "
           f"{R.resolve_intersector(static, cfg, device)}, shader {shader} "
@@ -113,12 +146,25 @@ def cmd_render(args) -> int:
     def progress(done, total):
         print(f"\rsample {done}/{total}", end="", file=sys.stderr)
 
+    metrics = Metrics() if (args.metrics or args.profile) else None
+    # The preview of each checkpoint goes beside the output:
+    # out.png -> out.preview.png.
+    preview = (os.path.splitext(args.out)[0] + ".preview.png"
+               if args.checkpoint else None)
     t0 = time.time()
-    res = R.render(fs, static, cfg, device=device, progress=progress)
+    with profiler_trace(args.profile):
+        res = R.render(fs, static, cfg, device=device, progress=progress,
+                       checkpoint_path=args.checkpoint,
+                       checkpoint_every=args.checkpoint_every,
+                       metrics=metrics, preview_path=preview)
     dt = time.time() - t0
     paths = cfg.width * cfg.height * cfg.samples
     print(f"\nrendered {paths} primary rays in {dt:.2f}s "
           f"({paths / dt:,.0f} paths/s on {device})", file=sys.stderr)
+    if metrics is not None:
+        print(metrics.report(), file=sys.stderr)
+    if args.profile:
+        print(f"wrote a torch.profiler trace to {args.profile}", file=sys.stderr)
     write_png(args.out, res.image)
     print(f"wrote {args.out}", file=sys.stderr)
     return 0

@@ -17,10 +17,14 @@ through the shade stage alone, and for a geometry field (``tri_a``,
 closest hit.  The JAX package sends material, light and texture sets to
 its fast path instead; ``ptx_torch.diff.fast`` ports it, but on the card
 it was not faster than the scan (``PERF.md``), so only the checks use
-it, as a second route to hold the scan against.  Geometry parameters need
-the "pallas" or "brute" intersector: the port refuses "bvh" (its BVH
-would not follow the moving vertices).  The tile traversal packs its
-tiles from the current vertices (``tiles.pack_tris``).
+it, as a second route to hold the scan against.  The "bvh" intersector
+serves material, light and texture sets (its walk selects the hits and
+carries no gradient, as in the JAX package); a geometry set under "bvh"
+raises ``ValueError``: the BVH's nodes are never refit when the vertices
+move, so the walk would miss triangles that leave their build-time boxes
+(the limitation the JAX package documents).  Geometry parameters take the
+"pallas" intersector, whose tiles are packed from the current vertices
+(``tiles.pack_tris``), or "brute".
 """
 
 from __future__ import annotations
@@ -112,7 +116,14 @@ def _resolve_diff_integrator(static, cfg, closest, any_hit, param_fields,
     if set(param_fields) & set(_GEOM_ATTR_COLS):
         from ptx_torch.render import resolve_intersector
 
-        if resolve_intersector(static, cfg, device) == "pallas":
+        name = resolve_intersector(static, cfg, device)
+        if name == "bvh":
+            raise ValueError(
+                "geometry parameters (tri_a, tri_e1, tri_e2) under the bvh "
+                "intersector: the BVH's nodes are never refit when the "
+                "vertices move, so the walk would miss triangles that leave "
+                "their build-time boxes; use intersector pallas or brute")
+        if name == "pallas":
             from ptx_torch.kernels import intersect_cuda
 
             closest, any_hit = intersect_cuda.make_backend(split_geom_grad=True)

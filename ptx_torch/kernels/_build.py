@@ -38,6 +38,7 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "ptx_tile_plan": [_P, _P, _I, _I, _P, _P, _P, _P],
     "ptx_closest": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
@@ -48,14 +49,19 @@ _SIGNATURES = {
     "ptx_shadow_rays": [_P, _P],
     "ptx_shade": [_P, _I, _P],
     "ptx_rcp_check": [_P, _P],
+    "ptx_bvh_closest": [_P, _L, _P, _L, _I, _P, _P, _P, _P, _P, _P, _P],
+    "ptx_bvh_any": [_P, _L, _P, _L, _I, _P, _P, _P],
+    "ptx_bvh_visits": [_P, _L, _P, _L, _I, _P, _P, _P],
 }
 
 # Kernel launches per wrapper since the last reset_launches() ("exact_gate":
 # the plan kernel, which replaces the JAX package's exact gate kernel;
-# "sun": the shadow-ray setup, which replaces its sun kernel).
+# "sun": the shadow-ray setup, which replaces its sun kernel; "bvh_*": the
+# BVH walk, which replaces the JAX package's traversal loop).
 LAUNCHES = {
     "exact_gate": 0, "closest": 0, "any": 0, "closest_small": 0,
     "any_small": 0, "sun": 0, "shade": 0, "closest_stats": 0,
+    "bvh_closest": 0, "bvh_any": 0, "bvh_visits": 0,
 }
 
 _lock = threading.Lock()

@@ -5,9 +5,11 @@ running mean (or claim blend) -> ACES/sRGB finalize.  ``RenderConfig`` is
 the port's copy of the JAX package's, with the same fields and meanings:
 
 * ``intersector``: "pallas" is the planned tile traversal (the CUDA kernels
-  on a CUDA device, their plain versions on the CPU); "auto" picks it on
-  CUDA and follows the JAX package's CPU rule otherwise; "brute" is the
-  plain brute-force sweep; "bvh" is not ported yet.
+  on a CUDA device, their plain versions on the CPU); "bvh" is the
+  stackless BVH walk (``csrc/bvh_traverse.cu`` on a CUDA device, the plain
+  walk ``accel/traverse.py`` on the CPU); "brute" is the plain brute-force
+  sweep; "auto" picks "pallas" on CUDA and follows the JAX package's CPU
+  rule otherwise ("brute" up to 65,536 padded triangles, else "bvh").
 * ``shader``: "pallas" is the fused shade schedule (the CUDA sun and shade
   kernels on a CUDA device, their plain versions on the CPU); "xla" is the
   plain torch shade stage; "auto" follows the JAX package: "pallas" when a
@@ -16,6 +18,7 @@ the port's copy of the JAX package's, with the same fields and meanings:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import sys
@@ -37,12 +40,7 @@ MAX_RAYS_PER_LAUNCH = 1 << 15
 
 # What the port refuses, and the ROADMAP item that will bring it.
 NOT_PORTED = {
-    "bvh": "the BVH traversal backend is not ported yet (ROADMAP Queue A item 9)",
-    "checkpoint": "checkpoint/preview is not ported yet (ROADMAP Queue A item 7)",
-    "env": "environment maps are not ported yet (ROADMAP Queue A item 11)",
-    "visualize": "debug visualizations are not ported yet (ROADMAP Queue A item 11)",
     "distributed": "multi-device rendering is not ported yet (ROADMAP Queue A item 12)",
-    "profile": "the port's profiling hook is not written yet (ROADMAP Queue A item 8)",
 }
 
 
@@ -51,9 +49,10 @@ def load_scene(path: str, device=None, scene_work=None, env_image=None,
                ) -> Tuple[FlatScene, SceneStatic]:
     """Load + flatten a glTF scene, ``synthetic:<n_tris>[:seed]`` or
     ``arch:<n_tris>`` with the port's copy of the JAX package's host code.  Returns numpy
-    arrays when ``device`` is None, else tensors on ``device``."""
-    if env_image is not None:
-        raise NotImplementedError(NOT_PORTED["env"])
+    arrays when ``device`` is None, else tensors on ``device``.
+    ``env_image`` ([H, W, 3] linear, ``ptx_torch.io.hdr.load_env_image``)
+    lights the misses of a glTF scene; the generated scenes ignore it, as
+    the JAX package's do."""
     if path.startswith("synthetic:"):
         from ptx_torch.scene.synthetic import load_synthetic
 
@@ -70,6 +69,7 @@ def load_scene(path: str, device=None, scene_work=None, env_image=None,
         fs, static = flatten(
             scene, pad_multiple=pad_multiple,
             base_dir=os.path.dirname(os.path.abspath(path)),
+            env_image=env_image,
         )
         if quirks is not None and quirks.use_emissive_strength:
             fs = apply_emissive_strength(fs, scene)
@@ -83,9 +83,7 @@ def resolve_intersector(static: SceneStatic, cfg: RenderConfig, device) -> str:
             name = "pallas"
         else:
             name = "brute" if static.n_tris_padded <= 65536 else "bvh"
-    if name == "bvh":
-        raise NotImplementedError(NOT_PORTED["bvh"])
-    if name not in ("brute", "pallas"):
+    if name not in ("brute", "bvh", "pallas"):
         raise ValueError(f"unknown intersector {name!r}")
     return name
 
@@ -105,27 +103,28 @@ def resolve_shader(cfg: RenderConfig) -> str:
 
 def ensure_accel(fs: FlatScene, static: SceneStatic, cfg: RenderConfig,
                  device=None):
-    """BVH-order the triangles (so 512-wide tiles are spatially tight) and
-    attach the traversal tiles when the resolved backend is the tile
-    traversal.  Runs on the host; returns tensors on ``device`` (numpy when
-    ``device`` is None)."""
+    """Attach the BVH the resolved backend needs: the BVH walk always, the
+    tile traversal above 2048 triangles (BVH order makes its 512-wide tiles
+    spatially tight), with its tiles packed.  Runs on the host; returns
+    tensors on ``device`` (numpy when ``device`` is None)."""
     for obj, cls in ((static, SceneStatic), (cfg, RenderConfig)):
         if not isinstance(obj, cls):
             raise TypeError(f"{type(obj).__module__}.{type(obj).__name__}: "
                             f"expected ptx_torch's {cls.__name__}")
     name = resolve_intersector(static, cfg, device or "cpu")
     fs = to_host(fs)
+    needs_bvh = name == "bvh" or (name == "pallas" and static.n_tris > 2048)
+    if needs_bvh and static.n_bvh_nodes == 0:
+        from ptx_torch.accel import bvh, native
+
+        t0 = time.perf_counter()
+        fs, static = bvh.build_bvh(fs, static)
+        print(f"BVH: {'native' if native.available() else 'numpy'} builder, "
+              f"{static.n_tris} triangles, {static.n_bvh_nodes} nodes in "
+              f"{time.perf_counter() - t0:.2f} s", file=sys.stderr)
     if name == "pallas":
         from ptx_torch.kernels.tiles import attach_tiles
 
-        if static.n_tris > 2048 and static.n_bvh_nodes == 0:
-            from ptx_torch.accel import bvh, native
-
-            t0 = time.perf_counter()
-            fs, static = bvh.build_bvh(fs, static)
-            print(f"BVH: {'native' if native.available() else 'numpy'} builder, "
-                  f"{static.n_tris} triangles, {static.n_bvh_nodes} nodes in "
-                  f"{time.perf_counter() - t0:.2f} s", file=sys.stderr)
         fs = attach_tiles(fs)
     return (to_device(fs, device) if device is not None else fs), static
 
@@ -140,6 +139,12 @@ def get_backend(static: SceneStatic, cfg: RenderConfig, device, sort=None):
         from ptx_torch.kernels.intersect import make_brute
 
         pair = make_brute()
+    elif name == "bvh":
+        from ptx_torch.kernels import traverse_cuda
+
+        if static.n_bvh_nodes == 0:
+            raise ValueError("the bvh backend needs ensure_accel() first")
+        pair = traverse_cuda.make_backend(static.bvh_leaf_size)
     else:
         from ptx_torch.kernels import intersect_cuda
 
@@ -306,11 +311,17 @@ class RenderResult:
 
 def render(fs: FlatScene, static: SceneStatic, cfg: RenderConfig,
            device="cuda", progress: Optional[Callable] = None,
-           checkpoint_path: Optional[str] = None) -> RenderResult:
+           checkpoint_path: Optional[str] = None, checkpoint_every: int = 5,
+           metrics=None, preview_path: Optional[str] = None) -> RenderResult:
     """Render ``cfg.samples`` progressive samples on ``device``.  ``fs``
-    may be numpy arrays or tensors."""
-    if checkpoint_path is not None:
-        raise NotImplementedError(NOT_PORTED["checkpoint"])
+    may be numpy arrays or tensors.
+
+    With ``checkpoint_path``, resumes from a compatible checkpoint and
+    writes one every ``checkpoint_every`` samples; the absolute-sample-id
+    RNG makes the resumed image identical to an uninterrupted run.  Each
+    checkpoint also writes a tonemapped preview PNG to ``preview_path``,
+    by default ``<checkpoint_path>.preview.png``.  ``metrics``: a
+    ``ptx_torch.utils.Metrics`` that takes the loop's phases."""
     fs, static = ensure_accel(fs, static, cfg, device=device)
     k = resolve_samples_per_launch(cfg)
     if k > 1:
@@ -318,44 +329,110 @@ def render(fs: FlatScene, static: SceneStatic, cfg: RenderConfig,
     else:
         batch_fn, sample_fn = None, make_sample_fn(static, cfg, device)
     return progressive_render(fs, static, cfg, sample_fn, batch_fn, k, device,
-                              progress=progress)
+                              progress=progress,
+                              checkpoint_path=checkpoint_path,
+                              checkpoint_every=checkpoint_every,
+                              metrics=metrics, preview_path=preview_path)
 
 
 def progressive_render(fs: FlatScene, static: SceneStatic, cfg: RenderConfig,
                        sample_fn, batch_fn, k: int, device,
-                       progress: Optional[Callable] = None) -> RenderResult:
+                       progress: Optional[Callable] = None,
+                       checkpoint_path: Optional[str] = None,
+                       checkpoint_every: int = 5, metrics=None,
+                       preview_path: Optional[str] = None) -> RenderResult:
     """The progressive sample loop: exactly one of ``sample_fn`` (k == 1) and
     ``batch_fn`` (k > 1 samples per launch) traces; the running mean (or
-    claim blend) is carried on ``device``."""
+    claim blend) is carried on ``device``.  Checkpoints (written only
+    between launches), resume, previews and metrics as :func:`render`
+    describes."""
+    from ptx_torch.io import checkpoint as ckpt_mod
+
     p = cfg.width * cfg.height
     carry = (torch.zeros((p, 3), device=device), torch.zeros((p,), device=device))
     if cfg.transparent_background:
         carry = carry + (torch.zeros((p,), dtype=torch.bool, device=device),)
-    s = 0
+
+    start = 0
+    fingerprint = None
+    if checkpoint_path is not None:
+        fingerprint = ckpt_mod.config_fingerprint(cfg)
+        loaded = ckpt_mod.load(checkpoint_path, fingerprint)
+        if loaded is not None and 0 < loaded.samples_done <= cfg.samples:
+            start = loaded.samples_done
+            carry = (torch.as_tensor(loaded.color, device=device),
+                     torch.as_tensor(loaded.alpha, device=device))
+            if cfg.transparent_background:
+                claimed = (loaded.claimed if loaded.claimed is not None
+                           else np.zeros(p, bool))
+                carry = carry + (torch.as_tensor(claimed, device=device),)
+        if preview_path is None:
+            preview_path = checkpoint_path + ".preview.png"
+
+    def write_checkpoint(done: int):
+        color, alpha = carry[0].cpu().numpy(), carry[1].cpu().numpy()
+        ckpt_mod.save(checkpoint_path, ckpt_mod.Checkpoint(
+            color=color, alpha=alpha,
+            claimed=(carry[2].cpu().numpy() if cfg.transparent_background
+                     else None),
+            samples_done=done, fingerprint=fingerprint,
+        ))
+        if preview_path is not None:
+            from ptx_torch.io.png import write_png
+
+            image = accumulate.finalize(carry[0], carry[1]).cpu().numpy()
+            write_png(preview_path, image.reshape(cfg.height, cfg.width, 4))
+
+    def phase(name, items=0.0, block=None):
+        if metrics is None:
+            return contextlib.nullcontext()
+        return metrics.phase(name, items=items, block=block)
+
+    s = start
+    last_ckpt = start // checkpoint_every
     while s < cfg.samples:
         if k > 1:
             count = min(k, cfg.samples - s)
-            colors, alphas = batch_fn(fs, s)
-            if cfg.transparent_background:
-                carry = _update_claim_batch(carry, colors, alphas, s, count)
-            else:
-                carry = _update_mean_batch(carry, colors, alphas, s, count)
+            out = []  # block= is read when the phase ends
+            with phase("trace", items=p * count, block=out):
+                out[:] = batch_fn(fs, s)
+            colors, alphas = out
+            with phase("accumulate"):
+                if cfg.transparent_background:
+                    carry = _update_claim_batch(carry, colors, alphas, s, count)
+                else:
+                    carry = _update_mean_batch(carry, colors, alphas, s, count)
             s += count
         else:
-            radiance, alpha = sample_fn(fs, s)
-            if cfg.transparent_background:
-                carry = _claim_step(carry, radiance, alpha, s)
-            else:
-                carry = _update_mean(carry, radiance, alpha, s)
+            out = []
+            with phase("trace", items=p, block=out):
+                out[:] = sample_fn(fs, s)
+            radiance, alpha = out
+            with phase("accumulate"):
+                if cfg.transparent_background:
+                    carry = _claim_step(carry, radiance, alpha, s)
+                else:
+                    carry = _update_mean(carry, radiance, alpha, s)
             s += 1
         if progress is not None:
             progress(s, cfg.samples)
+        if (checkpoint_path is not None and s // checkpoint_every > last_ckpt
+                and s < cfg.samples):
+            last_ckpt = s // checkpoint_every
+            with phase("checkpoint"):
+                write_checkpoint(s)
 
-    color, alpha = carry[0], carry[1]
-    image = accumulate.finalize(color, alpha)
-    h, w = cfg.height, cfg.width
-    return RenderResult(
-        color=color.cpu().numpy().reshape(h, w, 3),
-        alpha=alpha.cpu().numpy().reshape(h, w),
-        image=image.cpu().numpy().reshape(h, w, 4),
-    )
+    if checkpoint_path is not None:
+        with phase("checkpoint"):
+            write_checkpoint(cfg.samples)
+
+    with phase("finalize"):
+        color, alpha = carry[0], carry[1]
+        image = accumulate.finalize(color, alpha)
+        h, w = cfg.height, cfg.width
+        result = RenderResult(
+            color=color.cpu().numpy().reshape(h, w, 3),
+            alpha=alpha.cpu().numpy().reshape(h, w),
+            image=image.cpu().numpy().reshape(h, w, 4),
+        )
+    return result

@@ -1,0 +1,109 @@
+"""Observability: phase timers, throughput counters, profiler traces (port
+of ``ptx/utils.py``).
+
+:class:`Metrics` times named phases on the host clock, with an item count
+for a rate; a phase given ``block=`` tensors on a CUDA device waits for the
+device (``torch.cuda.synchronize``) before it stops the clock, as the JAX
+package waits with ``jax.block_until_ready``.  :func:`profiler_trace` runs
+``torch.profiler`` over a scope and writes a Chrome trace (JSON, open it in
+``chrome://tracing`` or Perfetto) into a directory; the JAX package's
+``jax.profiler`` writes TensorBoard / xprof files instead.
+
+The JAX package's ``compile_cache_dir`` / ``enable_compile_cache`` point
+XLA's persistent compile cache and are not ported: the port compiles no
+XLA, and its kernel library is cached by ``ptx_torch.kernels._build`` (a
+build per source hash under ``ptx_torch/build/``).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import logging
+import os
+import time
+from typing import Dict, Optional
+
+import torch
+
+log = logging.getLogger("ptx_torch")
+
+
+@dataclasses.dataclass
+class PhaseStat:
+    calls: int = 0
+    seconds: float = 0.0
+    items: float = 0.0
+
+    @property
+    def items_per_s(self) -> float:
+        return self.items / self.seconds if self.seconds else 0.0
+
+
+def _cuda_devices(obj):
+    """The CUDA devices of the tensors in ``obj`` (a tensor, or tuples,
+    lists and dicts of them)."""
+    if torch.is_tensor(obj):
+        return {obj.device} if obj.device.type == "cuda" else set()
+    if isinstance(obj, dict):
+        obj = list(obj.values())
+    if isinstance(obj, (tuple, list)):
+        return set().union(*(_cuda_devices(o) for o in obj))
+    return set()
+
+
+class Metrics:
+    """Accumulates per-phase wall time + item throughput.
+
+    >>> m = Metrics()
+    >>> with m.phase("intersect", items=65536):
+    ...     ...
+    >>> m.report()
+    """
+
+    def __init__(self):
+        self.phases: Dict[str, PhaseStat] = {}
+
+    @contextlib.contextmanager
+    def phase(self, name: str, items: float = 0.0, block=None):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            for dev in _cuda_devices(block):
+                torch.cuda.synchronize(dev)
+            stat = self.phases.setdefault(name, PhaseStat())
+            stat.calls += 1
+            stat.seconds += time.perf_counter() - t0
+            stat.items += items
+
+    def report(self) -> str:
+        lines = []
+        for name, s in sorted(self.phases.items()):
+            rate = f" {s.items_per_s:,.0f}/s" if s.items else ""
+            lines.append(
+                f"{name}: {s.seconds:.3f}s over {s.calls} calls{rate}"
+            )
+        text = "\n".join(lines)
+        log.info("metrics:\n%s", text)
+        return text
+
+
+@contextlib.contextmanager
+def profiler_trace(log_dir: Optional[str]):
+    """``torch.profiler`` trace scope (no-op when ``log_dir`` is None): the
+    host's operators and, with a card, its kernels, written on exit as
+    ``<log_dir>/ptx_torch_<pid>_<time>.trace.json`` (Chrome trace format)."""
+    if log_dir is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(
+        log_dir, f"ptx_torch_{os.getpid()}_{int(time.time())}.trace.json"))

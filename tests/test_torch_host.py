@@ -1,6 +1,6 @@
 """The port's own copies of the JAX package's numpy host modules give
 bit-identical results: scene loaders and flatten, the BVH builders, the
-config's JSON round trip and the PNG bytes.
+config's JSON round trip, the PNG and HDR bytes, and checkpoint files.
 
 Each case runs the ``ptx`` original and its ``ptx_torch`` copy on the same
 input and compares every array exactly (values, dtypes and shapes), every
@@ -17,6 +17,8 @@ import pytest
 from ptx import config as jconfig
 from ptx.accel import bvh as jbvh
 from ptx.accel import native as jnative
+from ptx.io import checkpoint as jcheckpoint
+from ptx.io import hdr as jhdr
 from ptx.io import png as jpng
 from ptx.scene import arch as jarch
 from ptx.scene import flatten as jflatten
@@ -25,6 +27,8 @@ from ptx.scene import synthetic as jsynthetic
 from ptx_torch import config as pconfig
 from ptx_torch.accel import bvh as pbvh
 from ptx_torch.accel import native as pnative
+from ptx_torch.io import checkpoint as pcheckpoint
+from ptx_torch.io import hdr as phdr
 from ptx_torch.io import png as ppng
 from ptx_torch.scene import arch as parch
 from ptx_torch.scene import flatten as pflatten
@@ -208,6 +212,47 @@ def test_png_bytes_identical(tmp_path, channels):
         assert (tmp_path / "p.png").read_bytes() == (tmp_path / "j.png").read_bytes()
         back = ppng.read_png(str(tmp_path / "p.png"))  # always RGBA
         np.testing.assert_array_equal(back[..., :channels], rgba)
+
+
+def test_hdr_bytes_identical(tmp_path):
+    rng = np.random.default_rng(8)
+    rgb = (rng.random((6, 9, 3)) * 4.0).astype(np.float32)
+    rgb[0, 0] = 0.0  # exponent 0
+    rgb[1, 1] = [1e-33, 0.0, 0.0]  # below the format's floor
+    jhdr.write_hdr(str(tmp_path / "j.hdr"), rgb)
+    phdr.write_hdr(str(tmp_path / "p.hdr"), rgb)
+    assert (tmp_path / "p.hdr").read_bytes() == (tmp_path / "j.hdr").read_bytes()
+    back = phdr.read_hdr(str(tmp_path / "p.hdr"))
+    np.testing.assert_array_equal(back, jhdr.read_hdr(str(tmp_path / "p.hdr")))
+    # RGBE keeps 8 mantissa bits of the largest channel and truncates;
+    # texels below 1e-32 are written as zero.
+    assert (np.abs(back - rgb) <= rgb.max(-1, keepdims=True) / 128 + 1e-32).all()
+
+
+@pytest.mark.parametrize("claimed", [False, True])
+def test_checkpoint_files_interchangeable(tmp_path, claimed):
+    """A checkpoint either package writes loads in the other with every
+    field equal; the fingerprints of one config agree."""
+    rng = np.random.default_rng(9)
+    cfg = jconfig.RenderConfig(width=5, height=4, seed=3,
+                               transparent_background=claimed)
+    fp = jcheckpoint.config_fingerprint(cfg)
+    assert pcheckpoint.config_fingerprint(port_config(cfg)) == fp
+    fields = dict(color=rng.random((20, 3)).astype(np.float32),
+                  alpha=rng.random(20).astype(np.float32),
+                  claimed=(rng.random(20) < 0.5) if claimed else None,
+                  samples_done=7, fingerprint=fp)
+    for writer, reader in ((jcheckpoint, pcheckpoint), (pcheckpoint, jcheckpoint)):
+        path = str(tmp_path / f"{writer.__name__}.npz")
+        writer.save(path, writer.Checkpoint(**fields))
+        got = reader.load(path, fp)
+        assert isinstance(got, reader.Checkpoint)
+        for name, want in fields.items():
+            if isinstance(want, np.ndarray):
+                np.testing.assert_array_equal(getattr(got, name), want)
+            else:
+                assert getattr(got, name) == want
+        assert reader.load(path, "0" * 16) is None
 
 
 def test_port_scene_helper_builds_port_classes():

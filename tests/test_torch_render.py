@@ -133,8 +133,11 @@ def test_resolution_rules():
     cfg = PortConfig()
     assert render.resolve_intersector(static, cfg, "cuda") == "pallas"
     assert render.resolve_intersector(static, cfg, "cpu") == "brute"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render.resolve_intersector(static, PortConfig(intersector="bvh"), "cuda")
+    for dev in ("cuda", "cpu"):
+        assert render.resolve_intersector(
+            static, PortConfig(intersector="bvh"), dev) == "bvh"
+    with pytest.raises(ValueError, match="unknown intersector"):
+        render.resolve_intersector(static, PortConfig(intersector="kd"), "cpu")
     # The shader rule of ptx/render.py::resolve_shader, on any device.
     for shader, size in (("auto", (32, 24)), ("auto", (33, 31)),
                          ("auto", (1920, 1080)), ("auto", (640, 480)),
@@ -177,7 +180,7 @@ def test_cli_renders_png(tmp_path):
     assert read_png(str(out)).shape == (12, 16, 4)
     bad = subprocess.run(
         [sys.executable, "-m", "ptx_torch.cli", "render", "--scene",
-         "synthetic:2000", "--device", "cpu", "--checkpoint", "x.npz",
+         "synthetic:2000", "--device", "cpu", "--distributed",
          "--out", str(out)],
         capture_output=True, text=True,
     )
