@@ -94,6 +94,29 @@ Phases (any failure raises, and the exit code is then non-zero):
    to a temp dir, the fused against the plain shade; (f) the ``bvh-depth``
    view (its launches) and the CLI with ``--visualize bvh-depth``,
    ``--checkpoint``, ``--metrics`` and ``--profile``.
+12. the multi-rank path (``ptx_torch.parallel``): the card's compute mode;
+   (a) ``torch.distributed.run`` with one rank (NCCL) runs ``ptx_torch.cli
+   render --distributed`` on the smoke cell, its PNG against the main
+   path's image; (b) two gloo ranks sharing the card (this script with
+   ``--rank-worker``, each with a timeout and its exit code checked) render
+   the smoke cell as dp=2, tp=2 reduce and tp=2 ring through
+   ``render_distributed``: each rank's launches of the plan, the sweeps,
+   the shadow-ray setup and shade counted (> 0) and the plain versions
+   counted (none), both ranks' images equal, each image against the main
+   path's (dp bit-equal, asserted; tp's flips counted), then each layout's
+   sample loop timed in the ranks (paths/s, the share of it in the
+   collective helpers on a synchronized clock, bytes handed to them per
+   sample: two ranks time-sharing one H100, not a scaling figure); (c) the
+   textured quads at tp=2 with the texel pack sharded, bit-equal to the
+   replicated pack and within 1e-5 of the single device; (d) each tp=2
+   shard as its rank prepares it (its own tiles): the plan, closest and
+   any sweeps against their plain versions bit for bit on the scattered
+   chunk (timed, with its bounds), a first bounce's shadow rows and the
+   camera chunk a ring hop brings; (e) the launch composition: a 640x480
+   frame at 8 spp in 30,720- and 25,600-pixel launches, planned (every
+   closest sweep against the walk of every tile in order on the same rays:
+   each differing winner a tie of its truncated t, counted; the differing
+   pixels counted) and with every tile walked in order (bit-equal).
 Every kernel's bound (the least time the card could take for the work of
 the timed launch: its operations at the float32 peak or its bytes at the
 HBM rate, whichever is larger) is computed from that launch's inputs.
@@ -391,14 +414,14 @@ def check_rcp(device):
     return slow, slow_normal, start.elapsed_time(end)
 
 
-def camera_rays(fs, width, height, n, device):
-    """The main path's first launch: pixels 0..n-1 of sample 0, sorted by
-    the wavefront's ray key."""
+def camera_rays(fs, width, height, n, device, first=0):
+    """The main path's first launch: pixels first..first+n-1 of sample 0,
+    in pixel order."""
     import torch
 
     from ptx_torch.scene.camera import generate_rays
 
-    pix = torch.arange(n, dtype=torch.int32, device=device)
+    pix = torch.arange(first, first + n, dtype=torch.int32, device=device)
     orig, dirn = generate_rays(fs, pix, torch.zeros_like(pix), width, height)
     return orig.contiguous(), dirn
 
@@ -492,10 +515,12 @@ def compare_winners(tag, fs, orig, dirn, got, want):
     return share, flips, err
 
 
-def check_kernels(fs, static, ray_sets, label, timing, reps):
+def check_kernels(fs, static, ray_sets, label, timing, reps, plan_calls=True):
     """Kernel vs plain version on the card, bit for bit, for each (name,
     orig, dirn, timed): the gate, the closest sweep (t and tri) and the any
-    sweep.  A timed set is timed; the record keeps the last one's times."""
+    sweep.  A timed set is timed; the record keeps the last one's times.
+    With ``plan_calls`` each plan's device kernels per call are counted
+    from profiles (:func:`plan_kernels`)."""
     import torch
 
     from ptx_torch import bench
@@ -518,12 +543,12 @@ def check_kernels(fs, static, ray_sets, label, timing, reps):
             finite = torch.isfinite(want[2])
             errs["exact_gate"] = max(errs.get("exact_gate", 0.0), float(
                 (plan[2] - want[2])[finite].abs().max()))
-            n_dev = plan_kernels(tag, lambda: K._plan_tiles(rays, boxes))
+            calls = (f"; {plan_kernels(tag, lambda: K._plan_tiles(rays, boxes)):g} "
+                     "device kernels per plan call" if plan_calls else "")
             log(f"{tag}: plan == sort_plan(_exact_gate) (order, count, near bit "
                 f"for bit); {float(plan[1].float().mean()):.1f} tiles planned per "
                 f"block, {int((plan[1] == 0).sum())} of {plan[1].shape[0]} blocks "
-                f"all-dead, {int((plan[2][:, 0] == 0).sum())} entered at 0; "
-                f"{n_dev:g} device kernels per plan call")
+                f"all-dead, {int((plan[2][:, 0] == 0).sum())} entered at 0{calls}")
             if timed:
                 time_kernel(timing, "exact_gate", tag,
                             lambda: K._plan_tiles(rays, boxes),
@@ -1596,6 +1621,472 @@ def check_bvh_path(fs, static, fs_np, static_np, cfg, dev, smi, scattered,
     return launches
 
 
+# The multi-rank path (phase 12): two ranks time-sharing the one card over
+# gloo run three layouts of the smoke cell, then sharded textures.
+DIST_LAYOUTS = (("dp2", 2, 1, "reduce"), ("tp2_reduce", 1, 2, "reduce"),
+                ("tp2_ring", 1, 2, "ring"))
+DIST_KERNELS = ("exact_gate", "closest", "any", "sun", "shade")
+TEX_SHAPE = dict(width=64, height=64, samples=2, bounces=2)
+TEX_KERNELS = ("closest_small", "shade")
+DIST_TIMEOUT = 300
+# What no rank may call on the card: the plain versions of every kernel of
+# the path, and the device tile pack (each shard brings its own tiles).
+PLAIN_VERSIONS = (("intersect_cuda", "_sweep"), ("intersect_cuda", "_small_sweep"),
+                  ("intersect_cuda", "_exact_gate"), ("intersect_cuda", "sort_plan"),
+                  ("intersect_cuda", "_frustum_gate"), ("intersect_cuda", "pack_tris"),
+                  ("shade_cuda", "_shade"), ("shade_cuda", "_shadow_rays"))
+SHARED = "two ranks time-sharing one H100 over gloo"
+# The launch-composition check: a 640x480 frame traced in the single
+# device's 30,720-pixel launches and in the 25,600-pixel launches of four
+# ray-parallel ranks (ptx_torch.parallel.dist.launch_pixels).
+COMPOSITION_LAUNCHES = (FRAME_RAYS, 25600)
+COMPOSITION_SAMPLES = 8
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def count_plain_calls():
+    """Wrap each of PLAIN_VERSIONS in its module with a counter; returns
+    the counts by name (cleared by :func:`run_layout`)."""
+    import importlib
+
+    calls = {}
+    for mod_name, name in PLAIN_VERSIONS:
+        mod = importlib.import_module(f"ptx_torch.kernels.{mod_name}")
+        fn = getattr(mod, name)
+
+        def counted(*a, _fn=fn, _name=name, **kw):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*a, **kw)
+
+        setattr(mod, name, counted)
+    return calls
+
+
+def run_layout(fs, static, cfg, plan, comm, dev, timed=(True,), plain=None):
+    """One layout on this rank, as phase 12's ranks and
+    ``multirank_check.py`` run it: ``render_distributed`` with the launch
+    counters and the plain-version counters ``plain``
+    (:func:`count_plain_calls`) set to 0 just before and read just after;
+    then, on the scene prepared again, the sample loop alone once per entry
+    of ``timed``, each pass from a barrier and the collective helpers'
+    clock on where the entry is True.  Returns a dict: the result, the
+    launches, the plain calls, each pass's wall seconds, the samples per
+    launch and the helpers' seconds, calls and bytes per sample in the last
+    pass."""
+    import torch
+
+    from ptx_torch import render as R
+    from ptx_torch.kernels import _build
+    from ptx_torch.parallel import dist as pdist
+    from ptx_torch.parallel import mesh as pmesh
+    from ptx_torch.parallel import multihost
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    mesh = pmesh.make_mesh(plan, dev)
+    _build.reset_launches()
+    if plain is not None:
+        plain.clear()
+    res = pdist.render_distributed(fs, static, cfg, plan=plan, mesh=mesh,
+                                   comm=comm, device=dev)
+    sync()
+    out = dict(result=res, launches=dict(_build.LAUNCHES),
+               plain_calls=dict(plain or {}), walls=[])
+    if not timed:
+        return out
+    fs_l, st_l = pdist.prepare_scene(fs, static, cfg, plan, mesh, dev)
+    k = R.resolve_samples_per_launch(cfg, ways=pdist.ray_ways(plan, comm))
+    fn = pdist.make_distributed_sample_fn(st_l, cfg, mesh, plan, comm, k=k,
+                                          device=dev)
+    rep = multihost.replicator(mesh, comm)
+    pixels = pdist.pixel_range(mesh, comm, cfg.width * cfg.height)
+    for clock in timed:
+        rep.barrier()
+        sync()
+        pdist.STATS.reset(timed=clock)
+        t0 = time.perf_counter()
+        R.progressive_render(fs_l, st_l, cfg, fn if k == 1 else None,
+                             fn if k > 1 else None, k, dev, replicate=rep,
+                             pixels=pixels)
+        sync()
+        out["walls"].append(time.perf_counter() - t0)
+    st = pdist.STATS
+    out.update(k=k, collective_s=st.seconds, collective_calls=st.calls,
+               bytes_per_sample=st.bytes / cfg.samples)
+    pdist.STATS.reset(timed=False)
+    return out
+
+
+def rank_worker(port: int, rank: int, out: str, spec: dict) -> int:
+    """One of two gloo ranks of phase 12 (``chip_smoke.py --rank-worker``):
+    each layout of DIST_LAYOUTS through :func:`run_layout` (its launches
+    and plain calls counted, then its sample loop timed with the collective
+    helpers' clock on); then the textured quads with the texel pack
+    replicated and sharded.  Writes ``rank<r>.json`` and each layout's
+    image."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from ptx_torch import render as R
+    from ptx_torch.parallel import mesh as pmesh
+    from ptx_torch.parallel import multihost
+    from ptx_torch.scene.flatten import flatten
+    from ptx_torch.scene.synthetic import make_textured_quads
+
+    multihost.initialize(f"localhost:{port}", 2, rank, backend="gloo")
+    dev = torch.device(spec["device"])
+    plain = count_plain_calls()
+    report = {}
+
+    def save(name, run, **extra):
+        res = run["result"]
+        np.savez(os.path.join(out, f"{name}.rank{rank}.npz"), color=res.color,
+                 alpha=res.alpha, image=res.image)
+        report[name] = dict(launches=run["launches"],
+                            plain_calls=run["plain_calls"], **extra)
+
+    cfg = R.RenderConfig(**spec["shape"])
+    fs, static = R.load_scene(spec["scene"])
+    for name, dp, tp, comm in DIST_LAYOUTS:
+        run = run_layout(fs, static, cfg, pmesh.Plan(dp, tp, tp > 1), comm,
+                         dev, plain=plain)
+        save(name, run, wall_s=run["walls"][0], collective_s=run["collective_s"],
+             collective_calls=run["collective_calls"],
+             bytes_per_sample=run["bytes_per_sample"], k=run["k"])
+
+    tex_fs, tex_static = flatten(make_textured_quads(3))
+    tex_cfg = R.RenderConfig(environment_factor=(0.0, 0.0, 0.0),
+                             **spec["tex_shape"])
+    for shard in (False, True):
+        save(f"tex_{'sharded' if shard else 'replicated'}",
+             run_layout(tex_fs, tex_static, tex_cfg,
+                        pmesh.Plan(1, 2, True, shard), "reduce", dev,
+                        timed=(), plain=plain))
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    multihost.shutdown()
+    return 0
+
+
+def check_shards(fs, static, fs_np, static_np, cfg, dev, tp=2):
+    """The traversal kernels at the shapes a scene-parallel rank gives
+    them: each of the ``tp`` shards of the smoke cell as its rank prepares
+    it (``prepare_scene``: ``build_shard_scene``, the rank's slice by
+    ``mesh.shard_scene``, its own tiles by ``attach_tiles``), and on each
+    the plan, the closest and the any sweep against their plain versions
+    bit for bit (:func:`check_kernels`): the 8,192-ray scattered chunk
+    (timed, with its bounds), the shadow rows of a first bounce's chunk of
+    the whole scene (what every rank of a reduce row traces) and the
+    camera chunk of the rank before it in the ring (the rays a ring hop
+    brings).  The plan's kernels per call are phase 3's (the same code on
+    the whole scene), not profiled again: late in the run the profiler can
+    miss every event.  Returns each shard's times."""
+    from ptx_torch.kernels import shade_cuda as S
+    from ptx_torch.parallel import dist as pdist
+    from ptx_torch.parallel import mesh as pmesh
+
+    plan = pmesh.Plan(1, tp, True)
+    scattered = scattered_rays(static, CHUNK_RAYS, 7, dev)
+    *_, sun_args = first_bounce(fs, static, cfg, CHUNK_RAYS, dev)
+    rows = S.shadow_rays(*sun_args)[2]
+    shadow = (rows[:CHUNK_RAYS, 0:3], rows[:CHUNK_RAYS, 3:6])
+    per_rank = cfg.width * cfg.height // tp
+    times = []
+    for r in range(tp):
+        mesh = pmesh.Mesh(plan, rank=r, dp_index=0, tp_index=r, device=str(dev))
+        fs_r, static_r = pdist.prepare_scene(fs_np, static_np, cfg, plan, mesh,
+                                             dev)
+        hop = camera_rays(fs, cfg.width, cfg.height, CHUNK_RAYS, dev,
+                          first=(r - 1) % tp * per_rank)
+        timing = {}
+        check_kernels(fs_r, static_r, [
+            ("scattered chunk", *scattered, True),
+            ("shadow rows", *shadow, False),
+            (f"camera chunk of rank {(r - 1) % tp}", *hop, False),
+        ], f"{SLICE_SCENE} shard {r} of {tp} ({static_r.n_tris_padded} "
+           f"triangles, {fs_r.ptiles.shape[0]} tiles)", timing, reps=3,
+           plan_calls=False)
+        times.append(timing)
+        del fs_r
+    return times
+
+
+def check_composition(fs_np, static_np, dev):
+    """Why a frame traced in other launches is not bit-equal.  The closest
+    sweep keeps the least key, (truncated t, lane); of equal keys the
+    earlier tile, and its exit rule skips a tile whose entry is not below
+    the block's largest truncated t, though that tile may hold an equal
+    truncated t with a lower lane; the gate plans a tile for a block when
+    any of its rays enters the tile's box.  So near ties and hits that lie
+    just outside their tile's box go by each 128-ray block's plan, that is
+    by the rays that share the block, and other launches give other
+    blocks.  A 640x480 frame at
+    COMPOSITION_SAMPLES spp in each of COMPOSITION_LAUNCHES: (i) planned,
+    every closest sweep of both renders also run on the same rays with
+    every tile walked in index order (the identity plan: no block-dependent
+    order, exit or gate), every ray whose result differs given a cause the
+    plan explains (asserted) and counted by it; the pixels that differ
+    between the two renders; (ii)
+    both renders with every sweep walking every tile in order: bit-equal
+    (asserted).  Returns (the counts by cause, pixels that differ
+    planned)."""
+    import numpy as np
+    import torch
+
+    from ptx_torch import render as R
+    from ptx_torch.kernels import intersect_cuda as K
+    from ptx_torch.kernels.tiles import HIT_T, RB, TT, identity_plan
+
+    def every_tile(rays, tiles):
+        return identity_plan(rays.shape[0] // RB, tiles.shape[0], rays.device)
+
+    sweep, plan_tiles = K.closest_sweep, K._plan_tiles
+    boxes = []  # the scene's tile boxes, as the last plan saw them
+    # Winners that differ from the walk of every tile (the hit mask
+    # included), by cause: an equal truncated t (and of those, an equal
+    # lane: equal keys); another near tie; a ray that alone (its own
+    # 128-copy block) gets the walk's result, so its block decided; a ray
+    # whose own gate leaves out the walk's winner's tile (the hit lies
+    # outside the box its slab test sees), so a block-mate that enters the
+    # box decides; none of these.  Of them, those whose hit mask differs;
+    # the largest relative difference of the truncated t where both hit.
+    moved = dict(equal_t=0, equal_key=0, near_tie=0, block=0, gate=0, other=0,
+                 hit_differs=0, rel=0.0)
+
+    def recording_plan(rays, tile_boxes):
+        boxes[:] = [tile_boxes]
+        return plan_tiles(rays, tile_boxes)
+
+    def checked_sweep(order, count, near, rays, tiles):
+        got = sweep(order, count, near, rays, tiles)
+        ref = sweep(*every_tile(rays, tiles), rays, tiles)
+        hit, hit_ref = got[0] < HIT_T, ref[0] < HIT_T
+        idx = ((hit != hit_ref) | ((hit | hit_ref) & (
+            lane_diffs(got[0], ref[0]) | (got[1] != ref[1])))).nonzero()[:, 0]
+        if not idx.numel():
+            return got
+        t, t_ref, tri, tri_ref = (x[idx] for x in (got[0], ref[0], got[1], ref[1]))
+        both = hit[idx] & hit_ref[idx]
+        rel = torch.where(both, (t - t_ref).abs() / t_ref.abs(), torch.inf)
+        equal_t = both & ~lane_diffs(t, t_ref)
+        near_tie = ~equal_t & (rel <= TIE_RTOL)
+        alone = rays[idx].repeat_interleave(RB, 0)
+        a_plan = plan_tiles(alone, boxes[0])
+        a_t, a_tri = (x[::RB] for x in sweep(*a_plan, alone, tiles))
+        same_alone = ~lane_diffs(a_t, t_ref) & ((a_tri == tri_ref) | ~hit_ref[idx])
+        block = ~(equal_t | near_tie) & same_alone
+        planned = ((a_plan[0] == (tri_ref // TT)[:, None])
+                   & (torch.arange(a_plan[0].shape[1], device=rays.device)[None, :]
+                      < a_plan[1][:, None])).any(1)
+        gate = ~(equal_t | near_tie | block) & hit_ref[idx] & ~planned
+        for name, mask in (("equal_t", equal_t), ("near_tie", near_tie),
+                           ("block", block), ("gate", gate),
+                           ("other", ~(equal_t | near_tie | block | gate)),
+                           ("hit_differs", ~both)):
+            moved[name] += int(mask.sum())
+        moved["equal_key"] += int((equal_t & (tri % TT == tri_ref % TT)).sum())
+        if bool(both.any()):
+            moved["rel"] = max(moved["rel"], float(rel[both].max()))
+        return got
+
+    cfg = R.RenderConfig(width=FRAME[0], height=FRAME[1],
+                         samples=COMPOSITION_SAMPLES, bounces=4,
+                         intersector="pallas")
+    diffs = []
+    for walk in ("planned", "every tile in order"):
+        if walk == "planned":
+            K.closest_sweep, K._plan_tiles = checked_sweep, recording_plan
+        else:
+            K._plan_tiles = lambda rays, boxes: identity_plan(
+                rays.shape[0] // RB, boxes.shape[0], rays.device)
+        try:
+            a, b = (R.render(fs_np, static_np, dataclasses.replace(
+                cfg, rays_per_batch=n), device=dev) for n in COMPOSITION_LAUNCHES)
+        finally:
+            K.closest_sweep, K._plan_tiles = sweep, plan_tiles
+        d = np.abs(a.color - b.color).max(-1)
+        diffs.append(int(((d > 0) | (a.alpha != b.alpha)).sum()))
+        log(f"launch composition: {FRAME[0]}x{FRAME[1]} {cfg.samples} spp in "
+            f"launches of {COMPOSITION_LAUNCHES[0]} and {COMPOSITION_LAUNCHES[1]} "
+            f"pixels, {walk}: {diffs[-1]} pixels differ (largest |dcolor| "
+            f"{float(d.max()):.3g})")
+    log(f"launch composition: closest results of the two planned renders "
+        f"that differ from the walk of every tile in order, by cause: "
+        f"{moved['equal_t']} equal truncated t ({moved['equal_key']} of them "
+        f"equal keys), {moved['near_tie']} other near ties (rel t <= "
+        f"{TIE_RTOL}), {moved['block']} where the ray alone gets the walk's "
+        f"result (its block decided), {moved['gate']} where the ray's own gate "
+        f"leaves out the winner's tile, {moved['other']} none of these; "
+        f"{moved['hit_differs']} of all with the hit mask differing; largest "
+        f"rel t where both hit {moved['rel']:.3g}")
+    if moved["other"]:
+        raise AssertionError("planned closest results differ from the walk of "
+                             "every tile for no cause the plan explains")
+    if diffs[1]:
+        raise AssertionError("renders in other launches differ with a walk that "
+                             "does not depend on the block")
+    return moved, diffs[0]
+
+
+def check_distributed(dev, single, cfg, smi, scene=SLICE_SCENE,
+                      tex_shape=TEX_SHAPE):
+    """Phase 12: (a) one NCCL rank through torchrun and the CLI; (b) two
+    gloo ranks sharing the card render ``scene`` at ``cfg`` as dp=2, tp=2
+    reduce and tp=2 ring, each image against ``single`` (the main path's
+    image: dp bit-equal, tp within the render-parity bound), every rank's
+    launches > 0 and no plain version called, with paths/s, the collective
+    share of the sample wall and the bytes per sample; (c) the textured
+    quads with a tp-sharded texel pack bit-equal to the replicated pack.
+    On the CPU (a rehearsal) the CLI's world is gloo too."""
+    import numpy as np
+
+    from ptx_torch import render as R
+    from ptx_torch.io.png import read_png
+    from ptx_torch.scene.flatten import flatten
+    from ptx_torch.scene.synthetic import make_textured_quads
+
+    if dev.type == "cuda":
+        mode = subprocess.run(
+            ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.strip()
+        log(f"compute mode: {mode}")
+    shape = dict(width=cfg.width, height=cfg.height, samples=cfg.samples,
+                 bounces=cfg.bounces)
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) torchrun, one rank, the default backend (NCCL on the card).
+        out = os.path.join(tmp, "nccl.png")
+        t0 = time.perf_counter()
+        subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+             "--nproc-per-node", "1", "--master-addr", "localhost",
+             "--master-port", str(_free_port()), "-m", "ptx_torch.cli",
+             "render", "--distributed", "--device", dev.type, "--scene",
+             scene, *(f"--{k}={v}" for k, v in shape.items()), "--out", out],
+            cwd=ROOT, check=True, timeout=DIST_TIMEOUT,
+        )
+        check_png(out, cfg.width, cfg.height)
+        img = read_png(out)
+        same = float((np.abs(img.astype(int) - single.image.astype(int))
+                      .max(-1) <= 1).mean())
+        log(f"(a) torchrun, 1 rank, --distributed: {cfg.width}x{cfg.height} "
+            f"PNG, uint8 within 1 of the single-device image on {same:.4f} "
+            f"({time.perf_counter() - t0:.1f} s with start-up)")
+        if same < MIN_PIXEL_SHARE:
+            raise AssertionError("the 1-rank distributed CLI image disagrees")
+
+        # (b), (c) two gloo ranks on the card.
+        spec = dict(device=dev.type, scene=scene, shape=shape,
+                    tex_shape=tex_shape)
+        port = _free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+             "--rank-worker", str(port), str(r), tmp, json.dumps(spec)],
+            cwd=ROOT, env={**os.environ, "OMP_NUM_THREADS": "4"},
+        ) for r in range(2)]
+        failed = []
+        for r, p in enumerate(procs):
+            try:
+                rc = p.wait(timeout=max(DIST_TIMEOUT - (time.perf_counter() - t0), 1))
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                    q.wait()
+                raise AssertionError(f"rank {r} outlived {DIST_TIMEOUT} s")
+            if rc != 0:
+                failed.append((r, rc))
+        if failed:
+            raise AssertionError(f"ranks failed (rank, exit code): {failed}")
+        log(f"(b, c) two gloo ranks: {time.perf_counter() - t0:.1f} s with "
+            "start-up")
+        reports = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                reports.append(json.load(f))
+
+        def image(name, r):
+            z = np.load(os.path.join(tmp, f"{name}.rank{r}.npz"))
+            return R.RenderResult(color=z["color"], alpha=z["alpha"],
+                                  image=z["image"])
+
+        def check_ranks(name, kernels):
+            for r, rep in enumerate(reports):
+                got = rep[name]
+                counts = {k: got["launches"][k] for k in kernels}
+                log(f"  rank {r} {name}: launches {counts}, plain calls "
+                    f"{got['plain_calls'] or 'none'}")
+                if dev.type != "cuda":  # a rehearsal: the plain versions
+                    continue
+                if min(counts.values()) <= 0:
+                    raise AssertionError(f"rank {r} {name}: a kernel of the "
+                                         f"path never launched: {counts}")
+                if got["plain_calls"]:
+                    raise AssertionError(f"rank {r} {name} called plain "
+                                         f"versions: {got['plain_calls']}")
+            a, b = image(name, 0), image(name, 1)
+            if not (np.array_equal(a.color, b.color)
+                    and np.array_equal(a.alpha, b.alpha)):
+                raise AssertionError(f"{name}: the two ranks' images differ")
+            return a
+
+        paths = cfg.width * cfg.height * cfg.samples
+        for name, dp, tp, comm in DIST_LAYOUTS:
+            got = check_ranks(name, DIST_KERNELS)
+            if not np.isfinite(got.color).all() or got.image[..., :3].max() == 0:
+                raise AssertionError(f"{name}: image black or not finite")
+            d = np.abs(got.color - single.color).max(-1)
+            exact = (np.array_equal(got.color, single.color)
+                     and np.array_equal(got.alpha, single.alpha))
+            color_share, alpha_share, image_share = image_agreement(got, single)
+            log(f"(b) {name} (dp={dp} tp={tp} {comm}) vs single device: "
+                f"bit-equal {exact}; {int((d > 0).sum())} pixels differ, "
+                f"{int((d > COLOR_ATOL).sum())} by more than {COLOR_ATOL} "
+                f"(|dcolor|<={COLOR_ATOL} on {color_share:.5f}, alpha equal on "
+                f"{alpha_share:.5f}, uint8 within 1 on {image_share:.5f})")
+            # Each dp rank traces whole launches of the single device's
+            # (the same pixels, samples per launch and block composition).
+            if tp == 1 and not exact:
+                raise AssertionError(f"{name}: ray-parallel image not bit-equal "
+                                     "to the single device")
+            if min(color_share, alpha_share, image_share) < MIN_PIXEL_SHARE:
+                raise AssertionError(f"{name} disagrees with the single-device "
+                                     "image")
+            for r, rep in enumerate(reports):
+                t = rep[name]
+                log(f"  rank {r} {name}: sample loop {t['wall_s']:.3f} s = "
+                    f"{paths / t['wall_s']:,.0f} paths/s, collectives "
+                    f"{t['collective_s']:.3f} s = "
+                    f"{100 * t['collective_s'] / t['wall_s']:.1f} % of it in "
+                    f"{t['collective_calls']} calls, "
+                    f"{t['bytes_per_sample']:,.0f} bytes per sample, "
+                    f"{t['k']} sample(s) per launch ({SHARED}; {smi})")
+
+        rep_img = check_ranks("tex_replicated", TEX_KERNELS)
+        shd_img = check_ranks("tex_sharded", TEX_KERNELS)
+        if not (np.array_equal(rep_img.color, shd_img.color)
+                and np.array_equal(rep_img.alpha, shd_img.alpha)):
+            raise AssertionError("sharded textures differ from the replicated "
+                                 "pack")
+        tex_fs, tex_static = flatten(make_textured_quads(3))
+        tex_single = R.render(tex_fs, tex_static, R.RenderConfig(
+            environment_factor=(0.0, 0.0, 0.0), **tex_shape), device=dev)
+        dmax = float(np.abs(shd_img.color - tex_single.color).max())
+        np.testing.assert_allclose(shd_img.color, tex_single.color,
+                                   rtol=1e-5, atol=1e-6)
+        log(f"(c) sharded texel pack (tp=2) bit-equal to the replicated one; "
+            f"max |dcolor| {dmax:.3g} against the single device")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "ptx_torch")):
         print("chip_smoke.py must run from a checkout of the repository",
@@ -1825,6 +2316,13 @@ def main() -> int:
     bvh_launches = check_bvh_path(fs, static, fs_np, static_np, cfg, dev, smi,
                                   scattered, timing, errs)
 
+    # 12. the multi-rank path: counts reset inside each rank just before
+    # each layout's render, read just after; then the kernels on each tp=2
+    # shard against their plain versions, and the launch composition.
+    check_distributed(dev, res, cfg, smi)
+    check_shards(fs, static, fs_np, static_np, cfg, dev)
+    check_composition(fs_np, static_np, dev)
+
     if "jax" in sys.modules or "ptx" in sys.modules:
         raise AssertionError("the port imported jax or the JAX package")
 
@@ -1850,4 +2348,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-worker"]:
+        sys.exit(rank_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                             json.loads(sys.argv[5])))
     sys.exit(main())

@@ -1,0 +1,206 @@
+#!/usr/bin/env python3
+"""The port's multi-rank render with one rank per card, checked and timed.
+
+    python -m torch.distributed.run --nproc-per-node 4 multirank_check.py \\
+        [--scene arch:300000] [--width 256 --height 256 --samples 4 \\
+        --bounces 4] [--device cuda]
+
+One process per card (NCCL, ``ptx_torch.parallel.multihost.initialize``).
+Rank 0 first logs the cards' links (``nvidia-smi topo -m`` and ``nvlink
+--status``, each with its exit code) and renders the
+frame on its card alone (the single-card sample loop, timed); then every
+layout of the world's size (dp only, dp x tp reduce and ring, tp only)
+runs through ``chip_smoke.run_layout``, as phase 12 of ``chip_smoke.py``
+runs it: each rank's kernel launches counted (> 0) and its calls of the
+plain versions (none), every rank's image equal to rank 0's, the image
+against a single-card render with the same samples per launch (a k-sample
+launch folds its samples into the mean in one sum, which rounds otherwise
+than k folds) and, at one sample per launch, the same launches (the rank's
+launch size as ``rays_per_batch``; the closest sweep breaks ties by each
+block's plan, so other launches give other blocks,
+``chip_smoke.check_composition``): a dp-only layout bit-equal, the others
+within |dcolor| <= 1e-4 on >= 99 % of pixels and alpha equal on >= 99 %,
+the differing pixels counted; then each layout's sample loop timed twice
+from a barrier: once plain (paths/s), once with the collective helpers'
+clock on (their share of the wall, bytes per sample).  Rank 0 prints one
+line per layout and, last, one JSON object; any failed check raises, and
+the exit code is then non-zero.  ``--device cpu`` runs the same on the CPU
+over gloo (a rehearsal: plain versions, no launches).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def layouts(world: int):
+    """(dp, tp, comm) of every layout of ``world`` ranks: dp only, then each
+    split with tp > 1 in both exchanges."""
+    out = [(world, 1, "reduce")]
+    for tp in range(2, world + 1):
+        if world % tp == 0:
+            out += [(world // tp, tp, "reduce"), (world // tp, tp, "ring")]
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--scene", default="arch:300000")
+    ap.add_argument("--width", type=int, default=256)
+    ap.add_argument("--height", type=int, default=256)
+    ap.add_argument("--samples", type=int, default=4)
+    ap.add_argument("--bounces", type=int, default=4)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    sys.path.insert(0, ROOT)
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import chip_smoke as smoke
+    from ptx_torch import render as R
+    from ptx_torch.parallel import dist as pdist
+    from ptx_torch.parallel import mesh as pmesh
+    from ptx_torch.parallel import multihost
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device")
+    if not multihost.initialize(device=args.device):
+        raise SystemExit("run under torch.distributed.run")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    dev = torch.device(args.device)
+    cuda = dev.type == "cuda"
+    card = ""
+    if cuda:
+        import subprocess
+
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader", "-i", str(torch.cuda.current_device())],
+            capture_output=True, text=True, check=True).stdout.strip()
+        if rank == 0:  # the links between the cards, where the tool reads them
+            for cmd in (["nvidia-smi", "topo", "-m"],
+                        ["nvidia-smi", "nvlink", "--status"]):
+                got = subprocess.run(cmd, capture_output=True, text=True)
+                print(f"$ {' '.join(cmd)} (exit {got.returncode})\n"
+                      f"{got.stdout}{got.stderr}", flush=True)
+    cards = [None] * world
+    dist.all_gather_object(cards, card)
+
+    def log(msg):
+        if rank == 0:
+            print(msg, flush=True)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    cfg = R.RenderConfig(width=args.width, height=args.height,
+                         samples=args.samples, bounces=args.bounces)
+    paths = cfg.width * cfg.height * cfg.samples
+    fs, static = R.load_scene(args.scene)
+    log(f"{world} ranks, {args.scene} {cfg.width}x{cfg.height} {cfg.samples} spp "
+        f"{cfg.bounces} bounces; cards: {cards}; torch {torch.__version__}")
+
+    # The single-card references on rank 0 (the others wait), by samples
+    # per launch and, at one sample per launch, pixels per launch.
+    references = {}
+
+    def reference(k, launch):
+        key = (k, launch if k == 1 else None)
+        if key not in references:
+            c = (dataclasses.replace(cfg, rays_per_batch=launch) if k == 1
+                 else dataclasses.replace(cfg, samples_per_launch=k))
+            references[key] = R.render(fs, static, c, device=dev)
+        return references[key]
+
+    single_s = None
+    if rank == 0:
+        R.render(fs, static, cfg, device=dev)  # warm-up
+        fs_1, st_1 = R.ensure_accel(fs, static, cfg, device=dev)
+        fn = R.make_sample_fn(st_1, cfg, dev)
+        sync()
+        t0 = time.perf_counter()
+        R.progressive_render(fs_1, st_1, cfg, fn, None, 1, dev)
+        sync()
+        single_s = time.perf_counter() - t0
+        log(f"single card: sample loop {single_s:.3f} s = "
+            f"{paths / single_s:,.0f} paths/s ({card})")
+        del fs_1
+    dist.barrier()
+
+    plain = smoke.count_plain_calls()
+    results = []
+    for dp, tp, comm in layouts(world):
+        plan = pmesh.Plan(dp, tp, tp > 1)
+        run = smoke.run_layout(fs, static, cfg, plan, comm, dev,
+                               timed=(False, True), plain=plain)
+        res = run["result"]
+        mine = dict(rank=rank,
+                    launches={k: run["launches"][k] for k in smoke.DIST_KERNELS},
+                    plain_calls=run["plain_calls"], wall_s=run["walls"][0],
+                    timed_wall_s=run["walls"][1], collective_s=run["collective_s"],
+                    collective_calls=run["collective_calls"],
+                    bytes_per_sample=run["bytes_per_sample"], k=run["k"],
+                    color=res.color, alpha=res.alpha)
+        every = [None] * world
+        dist.all_gather_object(every, mine)
+        if rank != 0:
+            continue
+        name = f"dp={dp} tp={tp} {comm}"
+        for r in every:
+            if cuda and min(r["launches"].values()) <= 0:
+                raise AssertionError(f"{name}: rank {r['rank']} never launched "
+                                     f"a kernel of the path: {r['launches']}")
+            if cuda and r["plain_calls"]:
+                raise AssertionError(f"{name}: rank {r['rank']} called plain "
+                                     f"versions: {r['plain_calls']}")
+            if not (np.array_equal(r["color"], res.color)
+                    and np.array_equal(r["alpha"], res.alpha)):
+                raise AssertionError(f"{name}: rank {r['rank']}'s image differs")
+        single = reference(run["k"], pdist.launch_pixels(plan, comm,
+                                                         cfg.width * cfg.height))
+        d = np.abs(res.color - single.color).max(-1)
+        exact = (np.array_equal(res.color, single.color)
+                 and np.array_equal(res.alpha, single.alpha))
+        share = float((d <= smoke.COLOR_ATOL).mean())
+        alpha = float((res.alpha == single.alpha).mean())
+        if not np.isfinite(res.color).all() or min(share, alpha) < smoke.MIN_PIXEL_SHARE:
+            raise AssertionError(f"{name} disagrees with the single card")
+        if tp == 1 and not exact:
+            raise AssertionError(f"{name}: ray-parallel image not bit-equal to "
+                                 "the single card with the same launches")
+        row = dict(
+            layout=name, bit_equal=exact, pixels_differ=int((d > 0).sum()),
+            pixels_over_atol=int((d > smoke.COLOR_ATOL).sum()),
+            paths_per_s=paths / max(r["wall_s"] for r in every),
+            speedup=single_s / max(r["wall_s"] for r in every),
+            collective_share=[r["collective_s"] / r["timed_wall_s"] for r in every],
+            bytes_per_sample=[r["bytes_per_sample"] for r in every],
+            samples_per_launch=every[0]["k"],
+            launches=[r["launches"] for r in every])
+        results.append(row)
+        log(f"{name}: {row['paths_per_s']:,.0f} paths/s "
+            f"({row['speedup']:.2f}x one card), bit-equal {exact}, "
+            f"{row['pixels_differ']} pixels differ "
+            f"({row['pixels_over_atol']} by > {smoke.COLOR_ATOL}); collectives "
+            f"{', '.join(f'{100 * c:.1f}' for c in row['collective_share'])} % "
+            f"of each rank's timed loop, "
+            f"{row['bytes_per_sample'][0]:,.0f} bytes per sample per rank "
+            f"({cards[0]})")
+    log(json.dumps({"single_paths_per_s": paths / single_s if rank == 0 else None,
+                    "cards": cards, "layouts": results}))
+    multihost.shutdown()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,26 +1,35 @@
-"""Command line of the port: the ``render``, ``bench`` and ``invert``
-subcommands.
+"""Command line of the port: the ``render``, ``bench``, ``invert`` and
+``partition`` subcommands.
 
 Usage:
     python -m ptx_torch.cli render --scene arch:300000 --out out.png \
         --width 256 --height 256 --samples 4 --bounces 4 [--device cuda] \
         [--intersector bvh] [--checkpoint ck.npz [--checkpoint-every 5]] \
         [--env sky.hdr] [--visualize bvh-depth] [--metrics] [--profile DIR]
+    python -m torch.distributed.run --nproc-per-node N -m ptx_torch.cli \
+        render --distributed [--tp T] [--comm reduce|ring] --scene ...
     python -m ptx_torch.cli bench [--backward] [--device cpu]
     python -m ptx_torch.cli invert --scene arch:2000 --width 64 --height 64 \
         --samples 2 --bounces 3 --steps 50 --params mat_albedo,mat_emissive
+    python -m ptx_torch.cli partition --scene scene.gltf --num-workers 4
 
 ``render --checkpoint`` resumes from a compatible checkpoint and writes
 one (and a preview PNG beside ``--out``) every ``--checkpoint-every``
 samples; ``--visualize`` writes a debug view (``ptx_torch.debug``) in place
 of the beauty render; ``--metrics`` prints per-phase times; ``--profile DIR``
-writes a ``torch.profiler`` Chrome trace into DIR.  ``bench`` measures the
+writes a ``torch.profiler`` Chrome trace into DIR.  ``render --distributed``
+joins the process group torchrun describes (one rank per card over NCCL)
+and renders over the rank mesh that ``ptx_torch.parallel.mesh.plan``
+picks (``--tp`` forces the scene axis, ``--comm`` its exchange); rank 0
+writes the files.  Without torchrun it is a world of 1.  ``bench`` measures the
 headline row (``arch:300000`` at 256x256, 16 spp,
 4 bounces unless flags say otherwise) and the extra rows of
 ``ptx_torch.bench`` and prints one JSON line; with ``--backward``, the two
 backward rows (grad-paths/s; 128x128, 4 spp, 4 bounces unless flags say
 otherwise).  ``invert`` perturbs the named scene parameters and recovers
 them by gradient descent (``ptx_torch.diff.inverse.run_inverse_demo``).
+``partition`` prints the primitive split of a glTF scene
+(``ptx_torch.parallel.partition.split_scene``) as JSON.
 """
 
 from __future__ import annotations
@@ -64,7 +73,14 @@ def _add_render_args(p: argparse.ArgumentParser, scene_required: bool = True):
     p.add_argument("--visualize", choices=["depth", "normals", "bvh-depth",
                                            "nan-check"],
                    help="debug visualization instead of a beauty render")
-    p.add_argument("--distributed", action="store_true")
+    p.add_argument("--distributed", action="store_true",
+                   help="render over the rank mesh (one process per rank, "
+                        "launched by torch.distributed.run)")
+    p.add_argument("--tp", type=int, default=None,
+                   help="force the scene-sharding axis size (default: the "
+                        "planner picks from scene size vs device memory)")
+    p.add_argument("--comm", default="reduce", choices=["reduce", "ring"],
+                   help="scene-axis exchange: min reduce or ring schedule")
     p.add_argument("--profile", metavar="DIR",
                    help="write a torch.profiler Chrome trace to DIR")
     p.add_argument("--metrics", action="store_true",
@@ -97,13 +113,6 @@ def _config_from_args(args):
     )
 
 
-def _refuse_unported(args) -> None:
-    from ptx_torch.render import NOT_PORTED
-
-    if args.distributed:
-        raise NotImplementedError(NOT_PORTED["distributed"])
-
-
 def cmd_render(args) -> int:
     import os
 
@@ -113,8 +122,16 @@ def cmd_render(args) -> int:
     from ptx_torch.io.png import write_png
     from ptx_torch.utils import Metrics, profiler_trace
 
-    _refuse_unported(args)
+    writer = True
+    if args.distributed:
+        # Before the scene loads: the process group also picks this rank's
+        # card.
+        import torch.distributed as dist
 
+        from ptx_torch.parallel import multihost
+
+        if multihost.initialize(device=args.device):
+            writer = dist.get_rank() == 0
     cfg = _config_from_args(args)
     device = torch.device(args.device)
     env_image = None
@@ -133,9 +150,11 @@ def cmd_render(args) -> int:
     if args.visualize:
         from ptx_torch.debug import visualize
 
-        write_png(args.out, visualize(fs, static, cfg, args.visualize, device))
-        print(f"wrote {args.visualize} visualization to {args.out}",
-              file=sys.stderr)
+        image = visualize(fs, static, cfg, args.visualize, device)
+        if writer:
+            write_png(args.out, image)
+            print(f"wrote {args.visualize} visualization to {args.out}",
+                  file=sys.stderr)
         return 0
 
     shader = R.resolve_shader(cfg)
@@ -153,10 +172,27 @@ def cmd_render(args) -> int:
                if args.checkpoint else None)
     t0 = time.time()
     with profiler_trace(args.profile):
-        res = R.render(fs, static, cfg, device=device, progress=progress,
-                       checkpoint_path=args.checkpoint,
-                       checkpoint_every=args.checkpoint_every,
-                       metrics=metrics, preview_path=preview)
+        if args.distributed:
+            from ptx_torch.parallel import dist as pdist
+            from ptx_torch.parallel import mesh as pmesh
+
+            plan = pmesh.plan(static.n_tris_padded,
+                              n_texels=int(fs.tex_texels.shape[0]),
+                              force_tp=args.tp, device=device)
+            print(f"mesh plan: dp={plan.dp} tp={plan.tp} "
+                  f"scene_sharded={plan.scene_sharded} "
+                  f"shard_textures={plan.shard_textures} comm={args.comm}",
+                  file=sys.stderr)
+            res = pdist.render_distributed(
+                fs, static, cfg, plan=plan, comm=args.comm,
+                progress=progress, checkpoint_path=args.checkpoint,
+                checkpoint_every=args.checkpoint_every, metrics=metrics,
+                preview_path=preview, device=device)
+        else:
+            res = R.render(fs, static, cfg, device=device, progress=progress,
+                           checkpoint_path=args.checkpoint,
+                           checkpoint_every=args.checkpoint_every,
+                           metrics=metrics, preview_path=preview)
     dt = time.time() - t0
     paths = cfg.width * cfg.height * cfg.samples
     print(f"\nrendered {paths} primary rays in {dt:.2f}s "
@@ -165,8 +201,13 @@ def cmd_render(args) -> int:
         print(metrics.report(), file=sys.stderr)
     if args.profile:
         print(f"wrote a torch.profiler trace to {args.profile}", file=sys.stderr)
-    write_png(args.out, res.image)
-    print(f"wrote {args.out}", file=sys.stderr)
+    if writer:
+        write_png(args.out, res.image)
+        print(f"wrote {args.out}", file=sys.stderr)
+    if args.distributed:
+        from ptx_torch.parallel import multihost
+
+        multihost.shutdown()
     return 0
 
 
@@ -178,7 +219,6 @@ BENCH_DEFAULTS = dict(scene="arch:300000", width=256, height=256, samples=16,
 def cmd_bench(args) -> int:
     from ptx_torch import bench
 
-    _refuse_unported(args)
     defaults = (dict(scene=bench.BACKWARD_SCENE, **bench.BACKWARD_SHAPE)
                 if args.backward else BENCH_DEFAULTS)
     for k, v in defaults.items():
@@ -193,10 +233,19 @@ def cmd_bench(args) -> int:
 def cmd_invert(args) -> int:
     from ptx_torch.diff.inverse import run_inverse_demo
 
-    _refuse_unported(args)
     fields = tuple(f.strip() for f in args.params.split(",") if f.strip())
     run_inverse_demo(args.scene, _config_from_args(args), steps=args.steps,
                      lr=args.lr, param_fields=fields, device=args.device)
+    return 0
+
+
+def cmd_partition(args) -> int:
+    """The scene's primitive split (the reference preprocessor's plan)."""
+    from ptx_torch.parallel.partition import split_scene
+
+    split = split_scene(args.scene, num_workers=args.num_workers,
+                        memory_per_worker_gb=args.memory_per_worker_gb)
+    print(split.to_json())
     return 0
 
 
@@ -224,6 +273,11 @@ def main(argv=None) -> int:
              "mat_roughness, mat_metallic, sun_energy; tri_a, through the "
              "Moller-Trumbore epilogue, with intersector pallas or brute)")
     p.set_defaults(fn=cmd_invert)
+    p = sub.add_parser("partition")
+    p.add_argument("--scene", required=True)
+    p.add_argument("--num-workers", type=int, default=None)
+    p.add_argument("--memory-per-worker-gb", type=float, default=None)
+    p.set_defaults(fn=cmd_partition)
     args = parser.parse_args(argv)
     return args.fn(args)
 

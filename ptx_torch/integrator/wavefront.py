@@ -77,8 +77,10 @@ def compute_hit_attrs(fs: FlatScene, tri, beta, gamma, at=None, geom=None):
     return position, normal, tangent, uv, mat_id
 
 
-def _env_radiance(fs: FlatScene, static: SceneStatic, cfg: RenderConfig, dirn):
-    """Environment contribution on a miss."""
+def _env_radiance(fs: FlatScene, static: SceneStatic, cfg: RenderConfig, dirn,
+                  tex_shard=None):
+    """Environment contribution on a miss (``tex_shard``: the rank's
+    ``textures.TexShard`` for a scene-sharded texel pack)."""
     env_factor = torch.tensor(
         cfg.environment_factor, dtype=torch.float32, device=dirn.device
     )
@@ -86,7 +88,8 @@ def _env_radiance(fs: FlatScene, static: SceneStatic, cfg: RenderConfig, dirn):
         uv = pmath.equirectangular_proj(dirn)
         tex = torch.full(dirn.shape[:-1], static.env_tex, dtype=torch.int32,
                          device=dirn.device)
-        return textures.sample_texture(fs, tex, uv, static)[..., :3] * env_factor
+        return (textures.sample_texture(fs, tex, uv, static, tex_shard)[..., :3]
+                * env_factor)
     return env_factor.expand(dirn.shape)
 
 
@@ -115,20 +118,34 @@ CHUNK = 8192
 SKIP_SORT_MAX = 4096
 
 
+def count_live(alive, live_sync=None) -> int:
+    """The live lanes of a wavefront (one device sync).  ``live_sync``
+    (multi-rank runs whose step holds collectives): a callable that maps
+    this rank's count, a 0-d tensor, to the largest count over the ranks,
+    so every rank steps the loop the same number of times and issues the
+    same collectives in the same order."""
+    n = alive.sum()
+    return int(live_sync(n)) if live_sync is not None else int(n)
+
+
 def _chunked_forward(step_fn, fs, state: RayState, max_iters: int,
-                     static: SceneStatic):
+                     static: SceneStatic, live_sync: Callable = None):
     """Forward bounce loop with survivor compaction.  Each iteration sorts
     the wavefront dead-last (fused with the morton key) and steps only the
     first ceil(live / CHUNK) chunks; lanes beyond them are dead and final.
     Once every live lane fits chunk 0 and there are at most SKIP_SORT_MAX of
     them, lanes only die in place and the sort is skipped.  Returns the
-    (radiance, alpha) of the lanes in their original order."""
+    (radiance, alpha) of the lanes in their original order.
+
+    With ``live_sync`` (:func:`count_live`) the live count is the largest
+    over the ranks: a rank with fewer live lanes steps all-dead chunks,
+    which is exact because parked lanes fail every gate."""
     r = state.orig.shape[0]
     chunk = CHUNK if r % CHUNK == 0 else r
     n_chunks = r // chunk
     slot = torch.arange(r, device=state.orig.device)
     dead_key = 1 << 30
-    live = int(state.alive.sum())
+    live = count_live(state.alive, live_sync)
     in_c0 = False
     it = 0
     while it < max_iters and live > 0:
@@ -149,7 +166,7 @@ def _chunked_forward(step_fn, fs, state: RayState, max_iters: int,
             for dst, src in zip(state, sub):
                 dst[sl] = src
         it += 1
-        live = int(state.alive.sum())
+        live = count_live(state.alive, live_sync)
     radiance = torch.empty_like(state.radiance)
     radiance[slot] = state.radiance
     alpha = torch.empty_like(state.alpha)
@@ -204,9 +221,10 @@ def make_trace_fn(static: SceneStatic, cfg: RenderConfig, closest: Callable,
     return trace
 
 
-def make_shade_fn(static: SceneStatic, cfg: RenderConfig):
+def make_shade_fn(static: SceneStatic, cfg: RenderConfig, tex_shard=None):
     """The per-bounce shade stage ``(fs, it, state, hit, d_sun, sun_exists,
-    shadow_hit) -> RayState``: plain torch, no traversal."""
+    shadow_hit) -> RayState``: plain torch, no traversal.  ``tex_shard``:
+    the rank's ``textures.TexShard`` for a scene-sharded texel pack."""
     q = cfg.quirks
 
     def shade(fs: FlatScene, it: int, state: RayState, h, d_sun, sun_exists,
@@ -222,7 +240,7 @@ def make_shade_fn(static: SceneStatic, cfg: RenderConfig):
         )
 
         # Miss: environment, terminate.
-        env = _env_radiance(fs, static, cfg, state.dirn)
+        env = _env_radiance(fs, static, cfg, state.dirn, tex_shard)
         miss = state.alive & ~hit
         radiance = torch.where(
             miss[..., None], state.radiance + state.throughput * env,
@@ -235,7 +253,7 @@ def make_shade_fn(static: SceneStatic, cfg: RenderConfig):
         alpha = torch.where(hit, 1.0, alpha)
 
         # Material fetch; emission.
-        mat = textures.material_lookup(fs, mat_id, uv, static)
+        mat = textures.material_lookup(fs, mat_id, uv, static, tex_shard)
         emissive = mat["emissive"] * q.emissive_scale
         radiance = torch.where(
             alive[..., None], radiance + state.throughput * emissive, radiance
@@ -396,20 +414,23 @@ def max_iterations(static: SceneStatic, cfg: RenderConfig) -> int:
 
 
 def run_forward(step: Callable, fs: FlatScene, state: RayState,
-                max_iters: int, static: SceneStatic, do_compact: bool):
+                max_iters: int, static: SceneStatic, do_compact: bool,
+                live_sync: Callable = None):
     """Step the wavefront until no lane is alive or ``max_iters``, with
-    survivor compaction when ``do_compact``; returns (radiance, alpha)."""
+    survivor compaction when ``do_compact``; returns (radiance, alpha).
+    ``live_sync``: see :func:`count_live`."""
     if do_compact:
-        return _chunked_forward(step, fs, state, max_iters, static)
+        return _chunked_forward(step, fs, state, max_iters, static, live_sync)
     it = 0
-    while it < max_iters and bool(state.alive.any()):
+    while it < max_iters and count_live(state.alive, live_sync) > 0:
         state = step(fs, it, state)
         it += 1
     return state.radiance, state.alpha
 
 
 def make_integrator(static: SceneStatic, cfg: RenderConfig, closest: Callable,
-                    any_hit: Callable, differentiable: bool = False):
+                    any_hit: Callable, differentiable: bool = False,
+                    live_sync: Callable = None, tex_shard=None):
     """The integrator ``(fs, pixel_ids, sample_ids) -> (radiance [R, 3],
     alpha [R])``.  ``closest(fs, orig, dirn) -> Hit`` and ``any_hit(fs,
     orig, dirn) -> [R] bool`` are the intersection backend.
@@ -422,11 +443,15 @@ def make_integrator(static: SceneStatic, cfg: RenderConfig, closest: Callable,
     exact because a step is the identity on dead lanes.  Autograd saves
     what the shade stage's backward needs; the sweeps run without it, so
     the trace adds to the graph only what depends on a parameter (the
-    epilogue's gather and Moller-Trumbore recompute, for vertices)."""
+    epilogue's gather and Moller-Trumbore recompute, for vertices).
+
+    Multi-rank runs (``ptx_torch.parallel.dist``) pass ``live_sync`` (see
+    :func:`count_live`) when the backend holds collectives, and
+    ``tex_shard`` (``textures.TexShard``) for a scene-sharded texel pack."""
     max_iters = max_iterations(static, cfg)
     do_compact = sorting.resolve_compact(static, cfg)
     trace = make_trace_fn(static, cfg, closest, any_hit, do_compact)
-    shade = make_shade_fn(static, cfg)
+    shade = make_shade_fn(static, cfg, tex_shard)
 
     def step(fs: FlatScene, it: int, state: RayState) -> RayState:
         return shade(fs, it, state, *trace(fs, it, state))
@@ -434,9 +459,10 @@ def make_integrator(static: SceneStatic, cfg: RenderConfig, closest: Callable,
     def integrate(fs: FlatScene, pixel_ids, sample_ids):
         state = initial_state(fs, cfg, pixel_ids, sample_ids)
         if not differentiable:
-            return run_forward(step, fs, state, max_iters, static, do_compact)
+            return run_forward(step, fs, state, max_iters, static, do_compact,
+                               live_sync)
         for it in range(max_iters):
-            if not bool(state.alive.any()):
+            if count_live(state.alive, live_sync) == 0:
                 break
             state = step(fs, it, state)
         return state.radiance, state.alpha

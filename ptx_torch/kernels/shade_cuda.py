@@ -514,7 +514,8 @@ def sun_constants(fs: FlatScene):
 
 
 def make_pallas_step(static: SceneStatic, cfg: RenderConfig,
-                     closest: Callable, any_hit: Callable, record: bool = False):
+                     closest: Callable, any_hit: Callable, record: bool = False,
+                     tex_shard=None):
     """One bounce ``(fs, it, state, sun) -> RayState`` of the fused schedule
     (``shade_pallas.make_pallas_step``); ``sun`` is :func:`sun_constants`
     of ``fs``, or None without a sun.  The shadow rays go to the tile
@@ -526,7 +527,12 @@ def make_pallas_step(static: SceneStatic, cfg: RenderConfig,
     ``(h, d_sun, sun_exists, shadow_hit)``, the outputs of the closest hit,
     the shadow-ray setup and the any sweep it ran anyway (zeros without a
     sun), which the fast differentiable path (``ptx_torch.diff.fast``)
-    saves for its backward."""
+    saves for its backward.
+
+    ``tex_shard``: the rank's ``textures.TexShard`` for a scene-sharded
+    texel pack.  A wrapped ``any_hit`` (the multi-rank exchanges) gets the
+    first ``r`` rows: parked lanes point away from the scene, so they miss
+    on every shard."""
     do_compact = sorting.resolve_compact(static, cfg)
     park = sorting.park_constants(static) if do_compact else None
     if any_hit is intersect_cuda.any_hit:
@@ -544,8 +550,8 @@ def make_pallas_step(static: SceneStatic, cfg: RenderConfig,
         else:
             q_orig, q_dirn = state.orig, state.dirn
         h = closest(fs, q_orig, q_dirn)
-        mat = textures.material_lookup(fs, h.mat_id, h.uv, static)
-        env = _env_radiance(fs, static, cfg, state.dirn)
+        mat = textures.material_lookup(fs, h.mat_id, h.uv, static, tex_shard)
+        env = _env_radiance(fs, static, cfg, state.dirn, tex_shard)
         if sun is None:
             out = shade(cfg, it, state, h, mat, env)
             if not record:
@@ -643,14 +649,16 @@ def inputs_from_arrays(a, device):
 
 
 def make_pallas_integrator(static: SceneStatic, cfg: RenderConfig,
-                           closest: Callable, any_hit: Callable):
+                           closest: Callable, any_hit: Callable,
+                           live_sync: Callable = None, tex_shard=None):
     """The forward integrator of the fused shade schedule
     (``shade_pallas.make_pallas_integrator``): the same images as
     ``wavefront.make_integrator`` up to the schedule's rounding.  A launch
-    must be a multiple of 128 rays, as in the JAX package."""
+    must be a multiple of 128 rays, as in the JAX package.  ``live_sync``
+    and ``tex_shard``: as ``wavefront.make_integrator`` takes them."""
     max_iters = max_iterations(static, cfg)
     do_compact = sorting.resolve_compact(static, cfg)
-    step = make_pallas_step(static, cfg, closest, any_hit)
+    step = make_pallas_step(static, cfg, closest, any_hit, tex_shard=tex_shard)
 
     def integrate(fs: FlatScene, pixel_ids, sample_ids):
         r = pixel_ids.shape[0]
@@ -662,6 +670,7 @@ def make_pallas_integrator(static: SceneStatic, cfg: RenderConfig,
         def step_sun(fs, it, s):
             return step(fs, it, s, sun)
 
-        return run_forward(step_sun, fs, state, max_iters, static, do_compact)
+        return run_forward(step_sun, fs, state, max_iters, static, do_compact,
+                           live_sync)
 
     return integrate

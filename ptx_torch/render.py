@@ -38,11 +38,6 @@ from ptx_torch.scene.bridge import to_device, to_host
 # size; measured on a TPU and kept until the card's own sweep replaces it.
 MAX_RAYS_PER_LAUNCH = 1 << 15
 
-# What the port refuses, and the ROADMAP item that will bring it.
-NOT_PORTED = {
-    "distributed": "multi-device rendering is not ported yet (ROADMAP Queue A item 12)",
-}
-
 
 def load_scene(path: str, device=None, scene_work=None, env_image=None,
                quirks=None, pad_multiple: int = 256
@@ -198,11 +193,13 @@ def resolve_rays_per_batch(cfg: RenderConfig):
     return None
 
 
-def resolve_samples_per_launch(cfg: RenderConfig) -> int:
-    """How many image samples one wavefront launch carries."""
+def resolve_samples_per_launch(cfg: RenderConfig, ways: int = 1) -> int:
+    """How many image samples one wavefront launch carries.  ``ways`` is
+    the ray-sharding degree (dp, or dp * tp in ring mode): the launch cap
+    applies to one rank's wavefront, so a dp-sharded frame batches more."""
     if cfg.rays_per_batch is not None:
         return 1
-    n_pixels = cfg.width * cfg.height
+    n_pixels = cfg.width * cfg.height // max(ways, 1)
     if cfg.samples_per_launch is not None:
         return max(1, min(cfg.samples_per_launch, cfg.samples))
     return max(1, min(cfg.samples, MAX_RAYS_PER_LAUNCH // max(n_pixels, 1)))
@@ -340,15 +337,27 @@ def progressive_render(fs: FlatScene, static: SceneStatic, cfg: RenderConfig,
                        progress: Optional[Callable] = None,
                        checkpoint_path: Optional[str] = None,
                        checkpoint_every: int = 5, metrics=None,
-                       preview_path: Optional[str] = None) -> RenderResult:
+                       preview_path: Optional[str] = None, replicate=None,
+                       pixels: Optional[Tuple[int, int]] = None
+                       ) -> RenderResult:
     """The progressive sample loop: exactly one of ``sample_fn`` (k == 1) and
     ``batch_fn`` (k > 1 samples per launch) traces; the running mean (or
     claim blend) is carried on ``device``.  Checkpoints (written only
     between launches), resume, previews and metrics as :func:`render`
-    describes."""
+    describes.
+
+    Multi-rank runs (``ptx_torch.parallel.dist.render_distributed``) carry
+    only this rank's ``pixels`` = ``(start, stop)``, which its trace
+    functions return, and pass ``replicate``
+    (``ptx_torch.parallel.multihost.replicator``): the gather of the carry
+    applied before each checkpoint write and the final fetch, with the
+    rank that writes files (``replicate.writer``) and a barrier after each
+    write.  Every rank resumes from the same file, which holds the whole
+    image whatever layout wrote it."""
     from ptx_torch.io import checkpoint as ckpt_mod
 
-    p = cfg.width * cfg.height
+    start_px, stop_px = pixels if pixels is not None else (0, cfg.width * cfg.height)
+    p = stop_px - start_px
     carry = (torch.zeros((p, 3), device=device), torch.zeros((p,), device=device))
     if cfg.transparent_background:
         carry = carry + (torch.zeros((p,), dtype=torch.bool, device=device),)
@@ -360,28 +369,36 @@ def progressive_render(fs: FlatScene, static: SceneStatic, cfg: RenderConfig,
         loaded = ckpt_mod.load(checkpoint_path, fingerprint)
         if loaded is not None and 0 < loaded.samples_done <= cfg.samples:
             start = loaded.samples_done
-            carry = (torch.as_tensor(loaded.color, device=device),
-                     torch.as_tensor(loaded.alpha, device=device))
+            own = slice(start_px, stop_px)
+            carry = (torch.as_tensor(loaded.color[own], device=device),
+                     torch.as_tensor(loaded.alpha[own], device=device))
             if cfg.transparent_background:
-                claimed = (loaded.claimed if loaded.claimed is not None
+                claimed = (loaded.claimed[own] if loaded.claimed is not None
                            else np.zeros(p, bool))
                 carry = carry + (torch.as_tensor(claimed, device=device),)
         if preview_path is None:
             preview_path = checkpoint_path + ".preview.png"
+        if replicate is not None:
+            # No rank may write before every rank has read.
+            replicate.barrier()
 
     def write_checkpoint(done: int):
-        color, alpha = carry[0].cpu().numpy(), carry[1].cpu().numpy()
-        ckpt_mod.save(checkpoint_path, ckpt_mod.Checkpoint(
-            color=color, alpha=alpha,
-            claimed=(carry[2].cpu().numpy() if cfg.transparent_background
-                     else None),
-            samples_done=done, fingerprint=fingerprint,
-        ))
-        if preview_path is not None:
-            from ptx_torch.io.png import write_png
+        c = replicate(carry) if replicate is not None else carry
+        if replicate is None or replicate.writer:
+            color, alpha = c[0].cpu().numpy(), c[1].cpu().numpy()
+            ckpt_mod.save(checkpoint_path, ckpt_mod.Checkpoint(
+                color=color, alpha=alpha,
+                claimed=(c[2].cpu().numpy() if cfg.transparent_background
+                         else None),
+                samples_done=done, fingerprint=fingerprint,
+            ))
+            if preview_path is not None:
+                from ptx_torch.io.png import write_png
 
-            image = accumulate.finalize(carry[0], carry[1]).cpu().numpy()
-            write_png(preview_path, image.reshape(cfg.height, cfg.width, 4))
+                image = accumulate.finalize(c[0], c[1]).cpu().numpy()
+                write_png(preview_path, image.reshape(cfg.height, cfg.width, 4))
+        if replicate is not None:
+            replicate.barrier()
 
     def phase(name, items=0.0, block=None):
         if metrics is None:
@@ -426,8 +443,10 @@ def progressive_render(fs: FlatScene, static: SceneStatic, cfg: RenderConfig,
         with phase("checkpoint"):
             write_checkpoint(cfg.samples)
 
+    color, alpha = carry[0], carry[1]
+    if replicate is not None:
+        color, alpha = replicate((color, alpha))
     with phase("finalize"):
-        color, alpha = carry[0], carry[1]
         image = accumulate.finalize(color, alpha)
         h, w = cfg.height, cfg.width
         result = RenderResult(

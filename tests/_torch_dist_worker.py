@@ -1,0 +1,161 @@
+"""One rank of a gloo world on the CPU, for ``tests/test_torch_parallel.py``.
+
+    RANK=r LOCAL_RANK=r WORLD_SIZE=n MASTER_ADDR=localhost MASTER_PORT=p \\
+        python tests/_torch_dist_worker.py OUT_DIR
+
+Joins the world through ``ptx_torch.parallel.multihost.initialize`` (the
+torchrun environment; gloo, as there is no card), renders every case of
+:data:`CASES` whose world size is ``n`` with
+``ptx_torch.parallel.dist.render_distributed`` and writes each rank's
+image to ``OUT_DIR/<case>.rank<r>.npz``; then, in ``mesh.rank<r>.json``,
+whether every mesh of a layout reused the groups of its first.  Imports
+only ``ptx_torch`` and numpy; the test imports :data:`CASES` and builds
+the references.
+"""
+
+import os
+import shutil
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCENE = "synthetic:3000"
+# Above 4 tiles per shard at tp = 2, so each shard's loop compacts.
+BIG_SCENE = "synthetic:6000"
+# Rays per rank are a multiple of 128 in every layout (32 x 16 / 4), so
+# the distributed and single-device renders take the same shader.
+SIZE = dict(width=32, height=16, samples=1, bounces=2)
+
+
+def _case(world, dp, tp, comm="reduce", scene=SCENE, kind="render",
+          shard_textures=False, **cfg):
+    return dict(world=world, dp=dp, tp=tp, comm=comm, scene=scene, kind=kind,
+                shard_textures=shard_textures, cfg={**SIZE, **cfg})
+
+
+def _cases():
+    c = {"dp2_brute": _case(2, 2, 1, intersector="brute")}
+    for dp, tp, comm in [(1, 2, "reduce"), (1, 2, "ring"), (2, 2, "reduce"),
+                         (2, 2, "ring"), (1, 4, "reduce")]:
+        for isect in ("brute", "bvh", "pallas"):
+            c[f"dp{dp}_tp{tp}_{comm}_{isect}"] = _case(
+                dp * tp, dp, tp, comm, intersector=isect, sort_rays="off")
+    # Survivor compaction on every shard (the live counts synced).
+    for dp, tp, comm in [(1, 2, "reduce"), (1, 2, "ring"), (2, 2, "ring")]:
+        c[f"compact_dp{dp}_tp{tp}_{comm}"] = _case(
+            dp * tp, dp, tp, comm, scene=BIG_SCENE, intersector="pallas",
+            bounces=3)
+    # Four samples in one launch, and one per launch.
+    for dp, tp, comm in [(2, 1, "reduce"), (1, 2, "ring"), (2, 2, "reduce")]:
+        for k in (4, 1):
+            c[f"batch{k}_dp{dp}_tp{tp}_{comm}"] = _case(
+                dp * tp, dp, tp, comm, intersector="brute", samples=4,
+                samples_per_launch=k)
+    c["chunk_dp2"] = _case(2, 2, 1, kind="chunk", intersector="brute",
+                           width=32, height=32, samples=2)
+    # One sample per launch: the resumed run then folds its samples into
+    # the mean in the same order as the uninterrupted one (a k-sample fold
+    # rounds differently from k single folds).
+    c["ckpt_dp2"] = _case(2, 2, 1, kind="ckpt", intersector="brute",
+                          width=16, height=16, samples_per_launch=1)
+    for shard in (False, True):
+        c[f"tex_tp2_{'sharded' if shard else 'replicated'}"] = _case(
+            2, 1, 2, scene="textured", shard_textures=shard,
+            intersector="brute", width=16, height=16, samples=2,
+            environment_factor=(0.0, 0.0, 0.0))
+    return c
+
+
+CASES = _cases()
+
+
+def load(scene):
+    """The host scene of a case (numpy arrays)."""
+    from ptx_torch import render as R
+
+    if scene == "textured":
+        from ptx_torch.scene.flatten import flatten
+        from ptx_torch.scene.synthetic import make_textured_quads
+
+        return flatten(make_textured_quads(3))
+    return R.load_scene(scene)
+
+
+def config(spec, **over):
+    from ptx_torch.config import RenderConfig
+
+    return RenderConfig(**{**spec["cfg"], **over})
+
+
+def main(out_dir: str) -> int:
+    sys.path.insert(0, ROOT)
+    import json
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from ptx_torch import render as R
+    from ptx_torch.parallel import dist as pdist
+    from ptx_torch.parallel import mesh as pmesh
+    from ptx_torch.parallel import multihost
+
+    assert multihost.initialize(), "no torchrun environment"
+    world, rank = dist.get_world_size(), dist.get_rank()
+    scenes, reused = {}, []
+    # Each layout's groups, made on its first make_mesh; every later mesh
+    # of the layout must reuse them.
+    groups = {}
+
+    def save(name, res):
+        np.savez(os.path.join(out_dir, f"{name}.rank{rank}.npz"),
+                 color=res.color, alpha=res.alpha, image=res.image)
+
+    for name, spec in CASES.items():
+        if spec["world"] != world:
+            continue
+        plan = pmesh.Plan(dp=spec["dp"], tp=spec["tp"],
+                          scene_sharded=spec["tp"] > 1,
+                          shard_textures=spec["shard_textures"])
+        mesh = pmesh.make_mesh(plan, "cpu")
+        made = groups.setdefault((plan.dp, plan.tp),
+                                 (mesh.tp_group, mesh.dp_group))
+        reused.append(made[0] is mesh.tp_group and made[1] is mesh.dp_group)
+        if spec["scene"] not in scenes:
+            scenes[spec["scene"]] = load(spec["scene"])
+        fs, static = scenes[spec["scene"]]
+
+        def render(cfg, **kw):
+            return pdist.render_distributed(fs, static, cfg, plan=plan,
+                                            mesh=mesh, comm=spec["comm"],
+                                            device="cpu", **kw)
+
+        if spec["kind"] == "render":
+            save(name, render(config(spec)))
+        elif spec["kind"] == "chunk":
+            save(f"{name}.whole", render(config(spec)))
+            cap = R.MAX_RAYS_PER_LAUNCH
+            R.MAX_RAYS_PER_LAUNCH = 128  # 512 rays per rank: 4 chunks
+            try:
+                save(f"{name}.capped", render(config(spec)))
+            finally:
+                R.MAX_RAYS_PER_LAUNCH = cap
+        elif spec["kind"] == "ckpt":
+            path = os.path.join(out_dir, f"{name}.ckpt.npz")
+            save(f"{name}.full", render(config(spec, samples=4)))
+            render(config(spec, samples=2), checkpoint_path=path,
+                   checkpoint_every=1)
+            if rank == 0:
+                # The 2-sample file, for a single-device resume.
+                shutil.copy(path, os.path.join(out_dir, f"{name}.at2.npz"))
+            save(f"{name}.resumed",
+                 render(config(spec, samples=4), checkpoint_path=path))
+        print(f"rank {rank}: {name} done", flush=True)
+    with open(os.path.join(out_dir, f"mesh.rank{rank}.json"), "w") as f:
+        json.dump(dict(layouts=len(groups), meshes=len(reused),
+                       reused=all(reused)), f)
+    multihost.shutdown()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1]))

@@ -1,6 +1,7 @@
 """The port's own copies of the JAX package's numpy host modules give
 bit-identical results: scene loaders and flatten, the BVH builders, the
-config's JSON round trip, the PNG and HDR bytes, and checkpoint files.
+config's JSON round trip, the PNG and HDR bytes, checkpoint files and the
+scene partitioner.
 
 Each case runs the ``ptx`` original and its ``ptx_torch`` copy on the same
 input and compares every array exactly (values, dtypes and shapes), every
@@ -20,6 +21,7 @@ from ptx.accel import native as jnative
 from ptx.io import checkpoint as jcheckpoint
 from ptx.io import hdr as jhdr
 from ptx.io import png as jpng
+from ptx.parallel import partition as jpartition
 from ptx.scene import arch as jarch
 from ptx.scene import flatten as jflatten
 from ptx.scene import gltf as jgltf
@@ -30,6 +32,7 @@ from ptx_torch.accel import native as pnative
 from ptx_torch.io import checkpoint as pcheckpoint
 from ptx_torch.io import hdr as phdr
 from ptx_torch.io import png as ppng
+from ptx_torch.parallel import partition as ppartition
 from ptx_torch.scene import arch as parch
 from ptx_torch.scene import flatten as pflatten
 from ptx_torch.scene import gltf as pgltf
@@ -154,6 +157,77 @@ def _gltf_scene(tmp_path, glb: bool) -> str:
         path = tmp_path / "scene.gltf"
         path.write_text(json.dumps(doc))
     return str(path)
+
+
+def _multi_mesh_gltf(tmp_path) -> str:
+    """A .gltf written here for the partitioner: four meshes with six
+    primitives in all, one mesh on a child node, one material with an
+    albedo texture in a file beside the scene (its bytes count toward the
+    partitioner's sizes), and a camera."""
+    rng = np.random.default_rng(5)
+    jpng.write_png(str(tmp_path / "albedo.png"),
+                   (rng.random((4, 4, 4)) * 255).astype(np.uint8))
+    blob, views, accessors, prims = b"", [], [], []
+    for i in range(6):
+        pos = (rng.random((3, 3)) * 2.0 - 1.0 + [0.0, 0.0, -3.0]).astype(np.float32)
+        uv = rng.random((3, 2)).astype(np.float32)
+        attrs = {}
+        for name, arr, typ in (("POSITION", pos, "VEC3"), ("TEXCOORD_0", uv, "VEC2")):
+            views.append({"buffer": 0, "byteOffset": len(blob),
+                          "byteLength": arr.nbytes})
+            blob += arr.tobytes()
+            acc = {"bufferView": len(views) - 1, "componentType": 5126,
+                   "count": 3, "type": typ}
+            if name == "POSITION":
+                acc.update(min=pos.min(0).tolist(), max=pos.max(0).tolist())
+            accessors.append(acc)
+            attrs[name] = len(accessors) - 1
+        prims.append({"attributes": attrs, "material": i % 2})
+    (tmp_path / "scene.bin").write_bytes(blob)
+    doc = {
+        "asset": {"version": "2.0"},
+        "scene": 0,
+        "scenes": [{"nodes": [0, 1, 3, 4]}],
+        "nodes": [
+            {"mesh": 0},
+            {"mesh": 1, "children": [2]},
+            {"mesh": 2, "translation": [0.0, 0.5, 0.0]},
+            {"mesh": 3},
+            {"camera": 0, "translation": [0.0, 0.0, 2.0]},
+        ],
+        "meshes": [
+            {"name": "floor", "primitives": prims[0:2]},
+            {"name": "wall", "primitives": prims[2:3]},
+            {"name": "lamp", "primitives": prims[3:5]},
+            {"name": "rock", "primitives": prims[5:6]},
+        ],
+        "materials": [
+            {"name": "tex", "pbrMetallicRoughness": {
+                "baseColorTexture": {"index": 0}}},
+            {"name": "glow", "emissiveFactor": [1.0, 0.9, 0.8]},
+        ],
+        "textures": [{"source": 0}],
+        "images": [{"uri": "albedo.png"}],
+        "cameras": [{"type": "perspective",
+                     "perspective": {"yfov": 0.8, "znear": 0.01}}],
+        "accessors": accessors,
+        "bufferViews": views,
+        "buffers": [{"byteLength": len(blob), "uri": "scene.bin"}],
+    }
+    path = tmp_path / "scene.gltf"
+    path.write_text(json.dumps(doc))
+    return str(path)
+
+
+@pytest.mark.parametrize("workers,budget", [(1, None), (2, None), (4, None),
+                                            (None, 1e-12), (3, 1e-7)])
+def test_partition_split_identical(tmp_path, workers, budget):
+    path = _multi_mesh_gltf(tmp_path)
+    got = ppartition.split_scene(path, workers, budget)
+    want = jpartition.split_scene(path, workers, budget)
+    assert got.to_json() == want.to_json()
+    assert sum(len(v) for w in got.split_work.values()
+               for v in w.work.values()) == 6
 
 
 @pytest.mark.parametrize("glb", [False, True], ids=["gltf", "glb"])

@@ -62,12 +62,21 @@ for mod in pkgutil.walk_packages(ptx_torch.__path__, "ptx_torch."):
     importlib.import_module(mod.name)
 import chip_smoke
 import ab_trees
+import multirank_check
+assert multirank_check.layouts(4) == [(4, 1, "reduce"), (2, 2, "reduce"),
+                                      (2, 2, "ring"), (1, 4, "reduce"),
+                                      (1, 4, "ring")]
 
 from ptx_torch import bench, render as R
 import ptx_torch.diff.fast, ptx_torch.diff.inverse
+from ptx_torch.parallel import dist
+assert {"ptx_torch.parallel." + m for m in
+        ("mesh", "multihost", "partition", "shard_scene", "dist")} <= set(sys.modules)
 fs, static = R.load_scene("synthetic:2000")
-res = R.render(fs, static, R.RenderConfig(width=16, height=16, samples=1,
-                                          bounces=2), device="cpu")
+cfg = R.RenderConfig(width=16, height=16, samples=1, bounces=2)
+res = R.render(fs, static, cfg, device="cpu")
+assert res.image.shape == (16, 16, 4)
+res = dist.render_distributed(fs, static, cfg, device="cpu")
 assert res.image.shape == (16, 16, 4)
 bench.run_bench(tiny=True, device="cpu")
 print("ok")
@@ -75,9 +84,11 @@ print("ok")
 
 
 def test_port_imports_without_jax():
-    """Every module of the port (``ptx_torch.diff`` included), a render and
-    the tiny bench (its backward rows run ``ptx_torch.diff``), with ``jax``
-    and the JAX package ``ptx`` refused at import."""
+    """Every module of the port (``ptx_torch.diff`` and
+    ``ptx_torch.parallel`` included), a render, a distributed render in a
+    world of 1 and the tiny bench (its backward rows run
+    ``ptx_torch.diff``), with ``jax`` and the JAX package ``ptx`` refused
+    at import."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run([sys.executable, "-c", _WITHOUT_JAX_OR_PTX], cwd=root,
                          capture_output=True, text=True, timeout=600,

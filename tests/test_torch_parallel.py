@@ -1,0 +1,292 @@
+"""The port's multi-rank render (``ptx_torch.parallel``) on the CPU.
+
+A module fixture starts one 2-rank and one 4-rank gloo world
+(``tests/_torch_dist_worker.py``, one process per rank) and, beside them,
+the CLI's ``render --distributed --device cpu`` as two ranks and the CLI
+on one process, all under one timeout; each world renders all of its
+cases and writes one file per case and rank.  Every case is then one
+test:
+
+* against the port's single-device render, with the tolerances of ``ptx``'s
+  own ``tests/test_parallel.py``: ray-parallel and brute-force cases
+  rtol 1e-5, atol 1e-6 and alpha equal; scene-parallel cases over every
+  intersector atol 1e-5 (shard-local BVHs and tiles);
+* three layouts against ``ptx.parallel.dist.render_distributed`` on the
+  virtual CPU devices, with the render-parity bound of
+  ``tests/test_torch_render.py`` (|dcolor| <= 1e-4 on >= 99 % of pixels,
+  alpha equal and the uint8 image within 1 on >= 99 %);
+* survivor compaction on every shard, sample batching (k = 4 against
+  k = 1, rtol 1e-6, atol 1e-7), the auto-chunk, checkpoint and resume (bit
+  for bit) and sharded textures (bit-equal to the replicated pack);
+* each layout's process groups made once, and the CLI's PNGs against the
+  single process's (ray-parallel bit-equal, scene-parallel within the
+  render-parity bound).
+
+Every rank returns the whole image; each rank's is held equal to rank 0's.
+A world that fails fails its own test and every case it did not finish.
+"""
+
+import functools
+import os
+import socket
+import subprocess
+import sys
+import time
+
+import numpy as np
+import pytest
+
+import _torch_dist_worker as W
+from ptx_torch import render as R
+
+WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      "_torch_dist_worker.py")
+ROOT = os.path.dirname(os.path.dirname(WORKER))
+# Seconds a world may take (about 10 s alone on this suite's CPUs).
+WORLD_TIMEOUT = 240
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _start(world: int, argv, torchrun=True):
+    """``world`` processes of ``argv``, each with torchrun's environment of
+    its rank (none with ``torchrun=False``: a plain single process)."""
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    if torchrun:
+        env.update(MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()),
+                   WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world))
+    return [subprocess.Popen(
+        argv, cwd=ROOT,
+        env={**env, "RANK": str(r), "LOCAL_RANK": str(r)} if torchrun else env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    ) for r in range(world)]
+
+
+# The CLI's --distributed on the CPU with two ranks of torchrun's
+# environment (the backend follows --device: gloo), and the CLI on one
+# process; each writes one PNG.
+CLI_ARGS = ["--device", "cpu", "--scene", W.SCENE, "--width", "32",
+            "--height", "16", "--samples", "1", "--bounces", "2",
+            "--intersector", "brute"]
+CLI_RUNS = {"cli_single": (1, [], False),
+            "cli_dp2": (2, ["--distributed"], True),
+            "cli_tp2_ring": (2, ["--distributed", "--tp", "2", "--comm", "ring"],
+                             True)}
+
+
+def _finish(procs, deadline):
+    """None when every rank exited 0, else what went wrong; a world that
+    outlives its deadline is killed."""
+    logs = []
+    for p in procs:
+        try:
+            logs.append(p.communicate(timeout=max(deadline - time.time(), 1))[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            for q in procs:
+                q.communicate()
+            return f"world of {len(procs)} timed out after {WORLD_TIMEOUT} s"
+    bad = [(r, log) for r, (p, log) in enumerate(zip(procs, logs))
+           if p.returncode != 0]
+    if bad:
+        return "\n".join(f"rank {r} failed:\n{log[-3000:]}" for r, log in bad)
+    return None
+
+
+@pytest.fixture(scope="module")
+def worlds(tmp_path_factory):
+    out = str(tmp_path_factory.mktemp("worlds"))
+    started = {w: _start(w, [sys.executable, WORKER, out]) for w in (2, 4)}
+    for name, (world, flags, torchrun) in CLI_RUNS.items():
+        started[name] = _start(world, [
+            sys.executable, "-m", "ptx_torch.cli", "render", *flags, *CLI_ARGS,
+            "--out", os.path.join(out, f"{name}.png")], torchrun)
+    deadline = time.time() + WORLD_TIMEOUT
+    errors = {w: _finish(p, deadline) for w, p in started.items()}
+    return out, errors
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_world_exits_cleanly(worlds, world):
+    assert worlds[1][world] is None, worlds[1][world]
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_make_mesh_reuses_each_layouts_groups(worlds, world):
+    """Every mesh of a layout after its first reuses the first's groups
+    (no new process groups per render)."""
+    import json
+
+    out, errors = worlds
+    for r in range(world):
+        path = os.path.join(out, f"mesh.rank{r}.json")
+        assert os.path.exists(path), errors[world]
+        with open(path) as f:
+            got = json.load(f)
+        assert got["reused"] and got["meshes"] > got["layouts"] >= 2, got
+
+
+@pytest.mark.parametrize("name", ["cli_dp2", "cli_tp2_ring"])
+def test_cli_distributed_on_the_cpu(worlds, name):
+    """``render --distributed --device cpu`` under two ranks of torchrun's
+    environment: both ranks exit 0 and rank 0 writes the PNG; the
+    ray-parallel PNG equals the single process's, the scene-parallel one
+    is within the render-parity bound of it."""
+    from ptx_torch.io.png import read_png
+
+    out, errors = worlds
+    for run in ("cli_single", name):
+        assert errors[run] is None, errors[run]
+    got, want = (read_png(os.path.join(out, f"{run}.png")).astype(int)
+                 for run in (name, "cli_single"))
+    assert got.shape == want.shape == (16, 32, 4) and got[..., :3].max() > 0
+    if name == "cli_dp2":
+        np.testing.assert_array_equal(got, want)
+    else:
+        assert (np.abs(got - want).max(-1) <= 1).mean() >= 0.99
+
+
+def _result(worlds, name, world):
+    """Rank 0's image of a case, after checking every rank's equals it.  A
+    case whose files are missing fails with its world's error."""
+    out, errors = worlds
+    paths = [os.path.join(out, f"{name}.rank{r}.npz") for r in range(world)]
+    assert all(os.path.exists(p) for p in paths), errors[world]
+    ranks = [dict(np.load(p)) for p in paths]
+    for r in ranks[1:]:
+        for key in ("color", "alpha", "image"):
+            np.testing.assert_array_equal(r[key], ranks[0][key], err_msg=key)
+    return ranks[0]
+
+
+@functools.lru_cache(maxsize=None)
+def _single(name, samples=None):
+    """The port's single-device render of a case's scene and config."""
+    spec = W.CASES[name]
+    fs, static = W.load(spec["scene"])
+    over = {} if samples is None else dict(samples=samples)
+    res = R.render(fs, static, W.config(spec, **over), device="cpu")
+    return dict(color=res.color, alpha=res.alpha, image=res.image)
+
+
+def _assert_parity(got, ref):
+    """The render-parity bound of ``tests/test_torch_render.py``."""
+    assert np.isfinite(got["color"]).all() and got["color"].mean() > 0.01
+    dcolor = np.abs(got["color"] - ref["color"]).max(-1)
+    assert (dcolor <= 1e-4).mean() >= 0.99
+    assert (got["alpha"] == ref["alpha"]).mean() >= 0.99
+    dimg = np.abs(got["image"].astype(int) - ref["image"].astype(int)).max(-1)
+    assert (dimg <= 1).mean() >= 0.99
+
+
+LAYOUTS = [n for n, s in W.CASES.items()
+           if s["kind"] == "render" and not n.startswith(("batch", "tex"))]
+
+
+@pytest.mark.parametrize("name", LAYOUTS)
+def test_distributed_matches_single_device(worlds, name):
+    spec = W.CASES[name]
+    got = _result(worlds, name, spec["world"])
+    ref = _single(name)
+    assert got["color"].shape == (16, 32, 3) and got["color"].mean() > 0.01
+    if spec["cfg"]["intersector"] == "brute":
+        np.testing.assert_allclose(got["color"], ref["color"], rtol=1e-5,
+                                   atol=1e-6)
+        np.testing.assert_array_equal(got["alpha"], ref["alpha"])
+    else:
+        np.testing.assert_allclose(got["color"], ref["color"], atol=1e-5)
+
+
+def test_compaction_runs_on_every_shard():
+    """The compaction cases compact on each shard's own view, so their live
+    counts go through ``live_sync``."""
+    from ptx_torch.kernels import sorting
+    from ptx_torch.parallel import mesh as pmesh
+    from ptx_torch.parallel.shard_scene import build_shard_scene
+
+    for name, spec in W.CASES.items():
+        if name.startswith("compact"):
+            fs, static = W.load(spec["scene"])
+            cfg = W.config(spec)
+            _, local = build_shard_scene(
+                fs, static, pmesh.Plan(spec["dp"], spec["tp"], True), cfg,
+                device="cpu")
+            assert sorting.resolve_compact(local, cfg), name
+
+
+@pytest.mark.parametrize("dp,tp,comm", [(1, 2, "reduce"), (1, 2, "ring"),
+                                        (2, 2, "reduce")])
+def test_matches_jax_render_distributed(worlds, dp, tp, comm):
+    from ptx import render as jrender
+    from ptx.config import RenderConfig
+    from ptx.parallel import dist as jdist
+    from ptx.parallel import mesh as jmesh
+
+    name = f"dp{dp}_tp{tp}_{comm}_brute"
+    got = _result(worlds, name, dp * tp)
+    fs, static = jrender.load_scene(W.SCENE, device=False)
+    plan = jmesh.Plan(dp=dp, tp=tp, scene_sharded=True)
+    ref = jdist.render_distributed(
+        fs, static, RenderConfig(**W.CASES[name]["cfg"]), plan=plan,
+        mesh=jmesh.make_mesh(plan), comm=comm)
+    _assert_parity(got, dict(color=np.asarray(ref.color),
+                             alpha=np.asarray(ref.alpha),
+                             image=np.asarray(ref.image)))
+
+
+@pytest.mark.parametrize("layout", ["dp2_tp1_reduce", "dp1_tp2_ring",
+                                    "dp2_tp2_reduce"])
+def test_sample_batching_matches_unbatched(worlds, layout):
+    world = W.CASES[f"batch4_{layout}"]["world"]
+    batched = _result(worlds, f"batch4_{layout}", world)
+    unbatched = _result(worlds, f"batch1_{layout}", world)
+    np.testing.assert_allclose(batched["color"], unbatched["color"],
+                               rtol=1e-6, atol=1e-7)
+
+
+def test_auto_chunk_matches_whole_frame(worlds):
+    whole = _result(worlds, "chunk_dp2.whole", 2)
+    capped = _result(worlds, "chunk_dp2.capped", 2)
+    np.testing.assert_array_equal(capped["color"], whole["color"])
+    np.testing.assert_array_equal(capped["alpha"], whole["alpha"])
+
+
+def test_checkpoint_resume_is_bit_equal(worlds):
+    full = _result(worlds, "ckpt_dp2.full", 2)
+    resumed = _result(worlds, "ckpt_dp2.resumed", 2)
+    np.testing.assert_array_equal(resumed["color"], full["color"])
+    np.testing.assert_array_equal(resumed["alpha"], full["alpha"])
+
+
+def test_two_rank_checkpoint_resumes_on_one_device(worlds, tmp_path):
+    import shutil
+
+    from ptx_torch.io import checkpoint as ck
+
+    out, errors = worlds
+    assert os.path.exists(os.path.join(out, "ckpt_dp2.at2.npz")), errors[2]
+    path = str(tmp_path / "at2.npz")
+    shutil.copy(os.path.join(out, "ckpt_dp2.at2.npz"), path)
+    assert ck.load(path).samples_done == 2
+    spec = W.CASES["ckpt_dp2"]
+    fs, static = W.load(spec["scene"])
+    resumed = R.render(fs, static, W.config(spec, samples=4), device="cpu",
+                       checkpoint_path=path)
+    np.testing.assert_array_equal(resumed.color,
+                                  _single("ckpt_dp2", samples=4)["color"])
+    np.testing.assert_array_equal(resumed.color,
+                                  _result(worlds, "ckpt_dp2.full", 2)["color"])
+
+
+def test_sharded_textures_match_replicated(worlds):
+    rep = _result(worlds, "tex_tp2_replicated", 2)
+    shd = _result(worlds, "tex_tp2_sharded", 2)
+    np.testing.assert_array_equal(shd["color"], rep["color"])
+    np.testing.assert_array_equal(shd["alpha"], rep["alpha"])
+    ref = _single("tex_tp2_sharded")
+    np.testing.assert_allclose(shd["color"], ref["color"], rtol=1e-5, atol=1e-6)

@@ -178,10 +178,16 @@ def test_cli_renders_png(tmp_path):
         check=True,
     )
     assert read_png(str(out)).shape == (12, 16, 4)
-    bad = subprocess.run(
+    # Without torchrun, --distributed is a world of 1 (as in ptx) and
+    # writes the same image.
+    dist_out = tmp_path / "dist.png"
+    run = subprocess.run(
         [sys.executable, "-m", "ptx_torch.cli", "render", "--scene",
-         "synthetic:2000", "--device", "cpu", "--distributed",
-         "--out", str(out)],
+         "synthetic:2000", "--device", "cpu", "--intersector", "pallas",
+         "--width", "16", "--height", "12", "--samples", "1", "--bounces", "2",
+         "--distributed", "--tp", "2", "--out", str(dist_out)],
         capture_output=True, text=True,
     )
-    assert bad.returncode != 0 and "ROADMAP" in bad.stderr
+    assert run.returncode == 0, run.stderr[-3000:]
+    assert "mesh plan: dp=1 tp=1" in run.stderr
+    np.testing.assert_array_equal(read_png(str(dist_out)), read_png(str(out)))
