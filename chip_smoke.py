@@ -117,6 +117,25 @@ Phases (any failure raises, and the exit code is then non-zero):
    closest sweep against the walk of every tile in order on the same rays:
    each differing winner a tie of its truncated t, counted; the differing
    pixels counted) and with every tile walked in order (bit-equal).
+13. the device loop (``ptx_torch.integrator.graphs.DeviceLoop``: CUDA
+   graphs of the chunk step and the sort, the live count read one
+   iteration late), the fused integrator's loop in phases 5-12 too:
+   (a) ``torch.cuda.set_sync_debug_mode("error")`` around one eager
+   8,192-lane chunk step of the tile traversal and of the bvh path, the
+   sort of a 32,768-lane wavefront and the frustum plan on 4,200 tiles (each
+   after one call that makes its constants); (b) renders of the smoke cell,
+   a translucent cell (the columns at opacity 0.5), ``synthetic:2000`` lit
+   by the sun and the bvh path, each through the device loop and through
+   the host loop: every launch's radiance and alpha bit-equal, the PNG
+   bytes equal; (c) per launch, the device loop's kernel launches (replays
+   x their graphs' tallies) equal the host loop's plus one chunk step's
+   for each all-dead chunk of the lag; (d) paths/s of the two loops in 3
+   turns each (smoke cell and bvh), the device loop's busy share by CUDA
+   events around each replay, and a profiled sample of each loop; (e)
+   each loop's graphs, capture seconds, pool and buffer bytes; (f) one
+   profiled sample of the host loop, its device time split by phase
+   (plan, closest, any, shadow-ray setup, shade, sort, epilogue, material
+   lookup, other).
 Every kernel's bound (the least time the card could take for the work of
 the timed launch: its operations at the float32 peak or its bytes at the
 HBM rate, whichever is larger) is computed from that launch's inputs.
@@ -1821,6 +1840,18 @@ def check_shards(fs, static, fs_np, static_np, cfg, dev, tp=2):
     return times
 
 
+def host_render(fs_np, static_np, cfg, dev):
+    """``render.render`` with the fused step on the host loop, where a check
+    wrapped around a kernel's wrapper runs at every call (the device loop's
+    graphs run it once, at capture).  Its images equal the device loop's
+    bit for bit (phase 13)."""
+    from ptx_torch import render as R
+
+    fs, static = R.ensure_accel(fs_np, static_np, cfg, device=dev)
+    host = loop_pair(fs, static, cfg, dev)[1]
+    return loop_render(host, fs, static, cfg, dev)[0]
+
+
 def check_composition(fs_np, static_np, dev):
     """Why a frame traced in other launches is not bit-equal.  The closest
     sweep keeps the least key, (truncated t, lane); of equal keys the
@@ -1838,8 +1869,8 @@ def check_composition(fs_np, static_np, dev):
     plan explains (asserted) and counted by it; the pixels that differ
     between the two renders; (ii)
     both renders with every sweep walking every tile in order: bit-equal
-    (asserted).  Returns (the counts by cause, pixels that differ
-    planned)."""
+    (asserted).  The renders take the host loop (:func:`host_render`).
+    Returns (the counts by cause, pixels that differ planned)."""
     import numpy as np
     import torch
 
@@ -1910,8 +1941,8 @@ def check_composition(fs_np, static_np, dev):
             K._plan_tiles = lambda rays, boxes: identity_plan(
                 rays.shape[0] // RB, boxes.shape[0], rays.device)
         try:
-            a, b = (R.render(fs_np, static_np, dataclasses.replace(
-                cfg, rays_per_batch=n), device=dev) for n in COMPOSITION_LAUNCHES)
+            a, b = (host_render(fs_np, static_np, dataclasses.replace(
+                cfg, rays_per_batch=n), dev) for n in COMPOSITION_LAUNCHES)
         finally:
             K.closest_sweep, K._plan_tiles = sweep, plan_tiles
         d = np.abs(a.color - b.color).max(-1)
@@ -2087,6 +2118,375 @@ def check_distributed(dev, single, cfg, smi, scene=SLICE_SCENE,
             f"max |dcolor| {dmax:.3g} against the single device")
 
 
+# The device loop (phase 13): the scenes it is held to the host loop on, all
+# at the smoke cell's shape (256x256, 4 spp, 4 bounces: 32,768-ray launches
+# of four 8,192-lane chunks).  The translucent scene is the smoke cell with
+# its columns (material 2) at opacity 0.5: rays pass through them in
+# opacity iterations past the bounces (up to 4 + 32).
+TRANSLUCENT_MATERIAL = 2
+LOOP_TURNS = ("host", "device", "device", "host", "host", "device")
+# The phases of the fused step (f): each label's device time less that of
+# the labelled calls inside it ("epilogue": the closest hit's call less its
+# plan and sweep; "material lookup": materials, textures and the
+# environment); "other" is the rest of the sample's kernels.
+SPLIT_LABELS = ("plan", "closest", "any", "shadow-ray setup", "shade", "sort",
+                "epilogue", "material lookup")
+
+
+def loop_pair(fs, static, cfg, dev):
+    """The fused integrator on the device loop (``make_pallas_integrator``,
+    as ``render`` makes it) and on the host loop (``_eager_integrator``)."""
+    from ptx_torch import render as R
+    from ptx_torch.kernels import shade_cuda as S
+
+    closest, any_hit = R.get_backend(static, cfg, dev, sort=False)
+    step = S.make_pallas_step(static, cfg, closest, any_hit)
+    return (S.make_pallas_integrator(static, cfg, closest, any_hit),
+            S._eager_integrator(static, cfg, step))
+
+
+def sample_fn_of(integrate, cfg, dev, outs=None):
+    """``render.make_sample_fn``'s sample pass over ``integrate`` (one
+    sample per launch); each launch's (radiance, alpha) is appended to
+    ``outs``."""
+    import torch
+
+    from ptx_torch import render as R
+
+    n = cfg.width * cfg.height
+    chunk = R.resolve_rays_per_batch(cfg) or n
+    if R.resolve_samples_per_launch(cfg) != 1:
+        raise ValueError("the loop checks take one sample per launch")
+
+    def sample_pass(fs, sample_id):
+        parts = []
+        for start in range(0, n, chunk):
+            out = integrate(
+                fs, torch.arange(start, start + chunk, dtype=torch.int32,
+                                 device=dev),
+                torch.full((chunk,), sample_id, dtype=torch.int32, device=dev))
+            if outs is not None:
+                outs.append(out)
+            parts.append(out)
+        return (torch.cat([p[0] for p in parts]),
+                torch.cat([p[1] for p in parts]))
+
+    return sample_pass
+
+
+def loop_render(integrate, fs, static, cfg, dev, outs=None):
+    """The production sample loop (``render.progressive_render``) over
+    ``integrate``: the RenderResult and its host seconds."""
+    import torch
+
+    from ptx_torch import render as R
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else lambda: None
+    sync()
+    t0 = time.perf_counter()
+    res = R.progressive_render(fs, static, cfg,
+                               sample_fn_of(integrate, cfg, dev, outs), None,
+                               1, dev)
+    sync()
+    return res, time.perf_counter() - t0
+
+
+def no_sync(tag, fn):
+    """``fn()`` once to set up what it makes on first use, then again under
+    ``torch.cuda.set_sync_debug_mode("error")``: raises if it syncs."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log(f"(a) {tag}: no device sync")
+
+
+def translucent_scene(fs_np, static_np):
+    """The smoke cell with material TRANSLUCENT_MATERIAL at opacity 0.5."""
+    import numpy as np
+
+    packed = np.array(fs_np.mat_packed)
+    opacity = np.array(fs_np.mat_opacity)
+    packed[TRANSLUCENT_MATERIAL, 3] = opacity[TRANSLUCENT_MATERIAL] = 0.5
+    return (fs_np._replace(mat_packed=packed, mat_opacity=opacity),
+            dataclasses.replace(static_np, has_translucent=True))
+
+
+def hold_loop(tag, fs, static, cfg, dev, tmp):
+    """(b) one render through the device loop and through the host loop:
+    each launch's radiance and alpha bit-equal, and the PNG bytes equal.
+    Returns the device loop."""
+    import numpy as np
+
+    from ptx_torch.io.png import write_png
+    from ptx_torch.kernels import _build
+
+    loop, host = loop_pair(fs, static, cfg, dev)
+    counts = {}
+    outs = {}
+    images = {}
+    for name, integrate in (("host", host), ("device", loop)):
+        outs[name] = []
+        _build.reset_launches()
+        res, wall = loop_render(integrate, fs, static, cfg, dev, outs[name])
+        counts[name] = {k: v for k, v in _build.LAUNCHES.items() if v}
+        if not np.isfinite(res.color).all() or res.image[..., :3].max() == 0:
+            raise AssertionError(f"{tag}: the {name} loop's image is black or "
+                                 "not finite")
+        path = os.path.join(tmp, f"{tag}_{name}.png")
+        write_png(path, res.image)
+        with open(path, "rb") as f:
+            images[name] = f.read()
+        log(f"(b) {tag}, {name} loop: {wall:.3f} s, launches {counts[name]}")
+    for i, (got, want) in enumerate(zip(outs["device"], outs["host"])):
+        for field, g, w in zip(("radiance", "alpha"), got, want):
+            n = int(lane_diffs(g, w).sum())
+            if n:
+                raise AssertionError(f"{tag}: launch {i}: the device loop's "
+                                     f"{field} differs from the host loop's "
+                                     f"in {n} lanes")
+    if len(outs["device"]) != len(outs["host"]):
+        raise AssertionError(f"{tag}: the two loops ran different launches")
+    if images["device"] != images["host"]:
+        raise AssertionError(f"{tag}: the two loops' PNG bytes differ")
+    s = loop.schedule()
+    log(f"(b) {tag}: {len(outs['host'])} launches bit-equal (radiance, alpha), "
+        f"PNG bytes equal; last launch: counts {s['counts']}, "
+        f"{s['iterations']} iterations ({s['host_iterations']} on the host "
+        f"loop), {s['sorts']} sorts, {s['chunk_steps']} chunk steps "
+        f"({s['dead_chunks']} all-dead)")
+    return loop
+
+
+def hold_launch_counts(loop, host, fs, cfg, dev):
+    """(c) per launch of one sample: the device loop's launches (replays x
+    their graphs' tallies) equal the host loop's plus one chunk step's for
+    each all-dead chunk of the lag."""
+    import torch
+
+    from ptx_torch import render as R
+    from ptx_torch.kernels import _build
+
+    n = cfg.width * cfg.height
+    chunk = R.resolve_rays_per_batch(cfg) or n
+    for start in range(0, n, chunk):
+        ids = (torch.arange(start, start + chunk, dtype=torch.int32, device=dev),
+               torch.zeros((chunk,), dtype=torch.int32, device=dev))
+        _build.reset_launches()
+        loop(fs, *ids)
+        s = loop.schedule()
+        got = dict(_build.LAUNCHES)
+        _build.reset_launches()
+        host(fs, *ids)
+        want = dict(_build.LAUNCHES)
+        for name, v in want.items():
+            per_step, rest = divmod(v, s["host_chunk_steps"])
+            if rest or got[name] != v + per_step * s["dead_chunks"]:
+                raise AssertionError(
+                    f"(c) launch at pixel {start}: {name} {got[name]} on the "
+                    f"device loop, {v} on the host loop over "
+                    f"{s['host_chunk_steps']} chunk steps, "
+                    f"{s['dead_chunks']} all-dead chunks")
+        log(f"(c) launch at pixel {start}: "
+            f"{ {k: v for k, v in got.items() if v} } = the host loop's "
+            f"{ {k: v for k, v in want.items() if v} } + {s['dead_chunks']} "
+            f"all-dead chunk steps ({s['chunk_steps']} replayed steps, "
+            f"{s['sorts']} sorts)")
+
+
+def loop_turns(tag, loop, host, fs, static, cfg, dev, smi):
+    """(d) the sample loop on each loop in turns (paths/s), then the device
+    loop's busy share by CUDA events around each replay (whatever a
+    profiler records of a graph) and a profiled sample of each loop."""
+    paths = cfg.width * cfg.height * cfg.samples
+    rates = {"host": [], "device": []}
+    for name in LOOP_TURNS:
+        _, wall = loop_render(loop if name == "device" else host, fs, static,
+                              cfg, dev)
+        rates[name].append(paths / wall)
+    for name, r in rates.items():
+        log(f"(d) {tag}, {name} loop: " + ", ".join(f"{x:,.0f}" for x in r)
+            + f" paths/s in turns ({smi})")
+    loop.replay_events = []
+    try:
+        _, wall = loop_render(loop, fs, static, cfg, dev)
+        busy = sum(a.elapsed_time(b) for a, b in loop.replay_events)
+        replays = len(loop.replay_events)
+    finally:
+        loop.replay_events = None
+    log(f"(d) {tag}, device loop: busy in its {replays} replays {busy:.1f} of "
+        f"{wall * 1e3:.1f} ms for {cfg.samples} samples "
+        f"({100 * busy / (wall * 1e3):.0f} %, CUDA events) ({smi})")
+    for name, integrate in (("host", host), ("device", loop)):
+        n_dev, busy, wall_ms, _ = profile_sample(
+            sample_fn_of(integrate, cfg, dev), fs)
+        log(f"(d) {tag}, {name} loop: profiled sample {n_dev} device kernels, "
+            f"busy {busy:.1f} of {wall_ms:.1f} ms "
+            f"({100 * busy / wall_ms:.0f} %) ({smi})")
+    return rates
+
+
+def phase_split(fs, static, cfg, dev, smi):
+    """(f) the device time of one profiled sample of the host loop, split by
+    phase (SPLIT_LABELS): each phase's calls run under
+    ``torch.profiler.record_function``; the five kernels also by name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from ptx_torch import render as R
+    from ptx_torch.integrator import wavefront as W
+    from ptx_torch.kernels import intersect_cuda as K
+    from ptx_torch.kernels import shade_cuda as S
+    from ptx_torch.scene import textures as T
+
+    def labelled(label, fn):
+        def call(*args, **kw):
+            with record_function(label):
+                return fn(*args, **kw)
+        return call
+
+    patches = [(K, "_plan_tiles", "plan"), (K, "closest_sweep", "closest"),
+               (K, "any_sweep", "any"), (S, "shadow_rays", "shadow-ray setup"),
+               (S, "shade", "shade"), (W, "sort_wavefront", "sort"),
+               (T, "material_lookup", "material lookup"),
+               (S, "_env_radiance", "material lookup")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    try:
+        for mod, name, label in patches:
+            setattr(mod, name, labelled(label, getattr(mod, name)))
+        closest, any_hit = R.get_backend(static, cfg, dev, sort=False)
+        step = S.make_pallas_step(static, cfg, labelled("epilogue", closest),
+                                  any_hit)
+        sample_fn = sample_fn_of(S._eager_integrator(static, cfg, step), cfg,
+                                 dev)
+        sample_fn(fs, 0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            sample_fn(fs, 0)
+            torch.cuda.synchronize()
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+    # Each labelled call leaves a device-side range (its first to its last
+    # kernel); a kernel belongs to the innermost range that holds it.
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ranges = sorted(((e.time_range.start, e.time_range.end, e.name)
+                     for e in events if e.name in SPLIT_LABELS),
+                    key=lambda x: x[1] - x[0])
+    kernels = [e for e in events if e.name not in SPLIT_LABELS]
+    total = sum(e.time_range.end - e.time_range.start for e in kernels)
+    split = dict.fromkeys(SPLIT_LABELS + ("other",), 0.0)
+    for e in kernels:
+        a, b = e.time_range.start, e.time_range.end
+        label = next((name for lo, hi, name in ranges if lo <= a and b <= hi),
+                     "other")
+        split[label] += b - a
+    if not ranges:
+        log("(f) host loop: the profiler kept no device-side range; the "
+            "split by phase is not measured")
+    log(f"(f) host loop, one profiled sample: {len(kernels)} device kernels, "
+        f"{total / 1e3:.3f} ms of device time; by phase: " + ", ".join(
+            f"{k} {v / 1e3:.3f} ms ({100 * v / total:.1f} %)"
+            for k, v in split.items()) + f" ({smi})")
+    by_name = {}
+    for name in ("exact_gate", "closest", "any", "sun", "shade"):
+        base, marks = CUDA_FUNCTIONS[name]
+        by_name[name] = sum(
+            e.time_range.end - e.time_range.start for e in kernels
+            if base in e.name
+            and (marks is None or any(m in e.name for m in marks)))
+    log("(f) the five kernels by name: " + ", ".join(
+        f"{k} {v / 1e3:.3f} ms" for k, v in by_name.items()))
+    return split
+
+
+def check_device_loop(fs_np, static_np, cfg, dev, smi):
+    """Phase 13: the device loop (``ptx_torch.integrator.graphs``): (a) no
+    sync in an eager chunk step; (b) the device loop against the host loop,
+    bit for bit per launch and in PNG bytes, on the smoke cell, a
+    translucent scene, the small-sweep scene and the bvh path; (c) its
+    launch counts; (d) paths/s in turns and the busy share; (e) graphs,
+    capture seconds, pool bytes; (f) the host loop's device time by
+    phase."""
+    import torch
+
+    from ptx_torch import render as R
+    from ptx_torch.integrator import wavefront as W
+    from ptx_torch.integrator.wavefront import RayState, initial_state
+    from ptx_torch.kernels import intersect_cuda as K
+    from ptx_torch.kernels import shade_cuda as S
+    from ptx_torch.kernels.tiles import _pack_rays
+
+    fs, static = R.ensure_accel(fs_np, static_np, cfg, device=dev)
+    cfg_b = dataclasses.replace(cfg, intersector="bvh")
+    fs_b, static_b = R.ensure_accel(fs_np, static_np, cfg_b, device=dev)
+
+    # (a) one eager chunk step of each route, the sort and the frustum plan.
+    pix = torch.arange(LAUNCH_RAYS, dtype=torch.int32, device=dev)
+    for tag, fs_c, st_c, c in (("fused step, tile traversal", fs, static, cfg),
+                               ("fused step, bvh", fs_b, static_b, cfg_b)):
+        state = initial_state(fs_c, c, pix, torch.zeros_like(pix))
+        sub = RayState(*(x[:CHUNK_RAYS] for x in state))
+        step = S.make_pallas_step(st_c, c, *R.get_backend(st_c, c, dev,
+                                                          sort=False))
+        sun = S.sun_constants(fs_c)
+        no_sync(f"{tag}, one {CHUNK_RAYS}-lane chunk",
+                lambda: step(fs_c, 0, sub, sun))
+    slot = torch.arange(LAUNCH_RAYS, device=dev)
+    no_sync(f"sort of a {LAUNCH_RAYS}-lane wavefront",
+            lambda: W.sort_wavefront(state, slot, static))
+    gen = torch.Generator(device=dev).manual_seed(13)
+    lo = torch.rand((4200, 3), device=dev, generator=gen) * 20.0 - 10.0
+    boxes = torch.cat([lo, lo + torch.rand((4200, 3), device=dev,
+                                           generator=gen),
+                       torch.zeros((4200, 2), device=dev)], 1)
+    rays = _pack_rays(*camera_rays(fs, 256, 256, CHUNK_RAYS, dev))[0]
+    no_sync("frustum plan, 4,200 tiles", lambda: K._plan_tiles(rays, boxes))
+
+    # (b), (c), (d), (e)
+    loops = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        loops["smoke cell"] = hold_loop("smoke cell", fs, static, cfg, dev, tmp)
+        fs_t, static_t = R.ensure_accel(*translucent_scene(fs_np, static_np),
+                                        cfg, device=dev)
+        loops["translucent"] = hold_loop("translucent", fs_t, static_t, cfg,
+                                         dev, tmp)
+        del fs_t
+        fs_sn, static_sn = R.load_scene(SMALL_SCENE)
+        fs_sn = fs_sn._replace(sun_dir=fs_np.sun_dir, sun_energy=fs_np.sun_energy,
+                               sun_angular_radius=fs_np.sun_angular_radius)
+        static_sn = dataclasses.replace(static_sn, has_sun=True)
+        fs_sn, static_sn = R.ensure_accel(fs_sn, static_sn, cfg, device=dev)
+        loops[SMALL_SCENE] = hold_loop(SMALL_SCENE, fs_sn, static_sn, cfg, dev,
+                                       tmp)
+        loops["bvh"] = hold_loop("bvh", fs_b, static_b, cfg_b, dev, tmp)
+    loop, host = loop_pair(fs, static, cfg, dev)
+    loop_render(loop, fs, static, cfg, dev)
+    hold_launch_counts(loop, host, fs, cfg, dev)
+    rates = {"smoke cell": loop_turns("smoke cell", loop, host, fs, static, cfg,
+                                      dev, smi)}
+    loop_b, host_b = loop_pair(fs_b, static_b, cfg_b, dev)
+    loop_render(loop_b, fs_b, static_b, cfg_b, dev)
+    rates["bvh"] = loop_turns("bvh", loop_b, host_b, fs_b, static_b, cfg_b, dev,
+                              smi)
+    for tag, lp in loops.items():
+        pool = lp.pool_bytes()
+        log(f"(e) {tag}: {lp.captures} graphs captured in "
+            f"{lp.capture_seconds:.3f} s, pool "
+            f"{'not measured' if pool is None else f'{pool:,} bytes'}, "
+            f"buffers {lp.buffer_bytes():,} bytes")
+    phase_split(fs, static, cfg, dev, smi)
+    return rates
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "ptx_torch")):
         print("chip_smoke.py must run from a checkout of the repository",
@@ -2210,6 +2610,8 @@ def main() -> int:
         steady = time.perf_counter() - t0
         log(f"sample loop, shader {shader} ({R.resolve_shader(c)}): "
             f"{steady:.3f} s = {paths / steady:,.0f} paths/s ({smi})")
+    # "auto" runs the device loop; the profiler records the kernels inside
+    # its CUDA graphs (torch 2.11), and phase 13 also times their replays.
     for shader in ("xla", "auto"):
         c = dataclasses.replace(cfg, shader=shader)
         n_dev, busy, wall_ms, top = profile_sample(
@@ -2322,6 +2724,10 @@ def main() -> int:
     check_distributed(dev, res, cfg, smi)
     check_shards(fs, static, fs_np, static_np, cfg, dev)
     check_composition(fs_np, static_np, dev)
+
+    # 13. the device loop: counts reset just before each launch's run, read
+    # just after.
+    check_device_loop(fs_np, static_np, cfg, dev, smi)
 
     if "jax" in sys.modules or "ptx" in sys.modules:
         raise AssertionError("the port imported jax or the JAX package")

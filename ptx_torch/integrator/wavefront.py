@@ -8,7 +8,8 @@ quirk, term for term as in the JAX package).  The RNG is keyed by (pixel,
 sample, bounce, purpose), so lane order never changes a sample.  With
 survivor compaction (:func:`_chunked_forward`) the loop sorts the wavefront
 dead-last each iteration and steps only the live CHUNK-lane chunks; each
-live count read (``.item()``) is one device sync.
+live count read (``.item()``) is one device sync.  The fused integrator
+runs that schedule as a device program (``ptx_torch.integrator.graphs``).
 
 Sampled directions and the lobe probability are detached (the JAX
 package's ``stop_gradient``: detached sampling), so the radiance is
@@ -31,6 +32,7 @@ from ptx_torch.scene import camera as pcamera
 from ptx_torch.scene import textures
 from ptx_torch.config import RenderConfig
 from ptx_torch.scene.flatten import FlatScene, SceneStatic
+from ptx_torch.utils import device_constant
 
 
 class RayState(NamedTuple):
@@ -81,9 +83,7 @@ def _env_radiance(fs: FlatScene, static: SceneStatic, cfg: RenderConfig, dirn,
                   tex_shard=None):
     """Environment contribution on a miss (``tex_shard``: the rank's
     ``textures.TexShard`` for a scene-sharded texel pack)."""
-    env_factor = torch.tensor(
-        cfg.environment_factor, dtype=torch.float32, device=dirn.device
-    )
+    env_factor = device_constant(tuple(cfg.environment_factor), dirn.device)
     if static.env_tex >= 0:
         uv = pmath.equirectangular_proj(dirn)
         tex = torch.full(dirn.shape[:-1], static.env_tex, dtype=torch.int32,
@@ -116,6 +116,9 @@ def _brdf_and_pdfs(normal, outcoming, incoming, albedo, metallic, roughness):
 # kept until the card's own measurement replaces them.
 CHUNK = 8192
 SKIP_SORT_MAX = 4096
+# The sort key of a dead lane: above every morton key, so dead lanes sort
+# last.
+DEAD_KEY = 1 << 30
 
 
 def count_live(alive, live_sync=None) -> int:
@@ -128,37 +131,53 @@ def count_live(alive, live_sync=None) -> int:
     return int(live_sync(n)) if live_sync is not None else int(n)
 
 
+def chunk_layout(r: int):
+    """``(chunk, n_chunks)`` of an ``r``-lane wavefront under compaction:
+    CHUNK-lane chunks when they divide it, else one chunk of all lanes."""
+    chunk = CHUNK if r % CHUNK == 0 else r
+    return chunk, r // chunk
+
+
+def sort_skip_max(chunk: int) -> int:
+    """The live count at or below which, once reached, the loop stops
+    sorting: every live lane then lies in chunk 0 and only dies in place."""
+    return min(chunk, SKIP_SORT_MAX)
+
+
+def sort_wavefront(state: RayState, slot, static: SceneStatic):
+    """The wavefront and its lanes' original slots, sorted dead-last, live
+    lanes by their morton key (a stable sort, as ``jnp.argsort`` is)."""
+    key = sorting.ray_keys(state.orig, state.dirn, static.aabb_lo,
+                           static.aabb_hi)
+    perm = torch.argsort(torch.where(state.alive, key, DEAD_KEY), stable=True)
+    return RayState(*(x[perm] for x in state)), slot[perm]
+
+
 def _chunked_forward(step_fn, fs, state: RayState, max_iters: int,
                      static: SceneStatic, live_sync: Callable = None):
-    """Forward bounce loop with survivor compaction.  Each iteration sorts
-    the wavefront dead-last (fused with the morton key) and steps only the
-    first ceil(live / CHUNK) chunks; lanes beyond them are dead and final.
-    Once every live lane fits chunk 0 and there are at most SKIP_SORT_MAX of
-    them, lanes only die in place and the sort is skipped.  Returns the
-    (radiance, alpha) of the lanes in their original order.
+    """Forward bounce loop with survivor compaction, on the host: each
+    iteration reads the live count (one device sync), sorts the wavefront
+    dead-last (:func:`sort_wavefront`) and steps only the first ceil(live /
+    CHUNK) chunks; lanes beyond them are dead and final.  Once every live
+    lane fits chunk 0 and there are at most SKIP_SORT_MAX of them, lanes
+    only die in place and the sort is skipped.  Returns the (radiance,
+    alpha) of the lanes in their original order.  The fused integrator on
+    one rank runs the same schedule as a device program
+    (``ptx_torch.integrator.graphs``).
 
     With ``live_sync`` (:func:`count_live`) the live count is the largest
     over the ranks: a rank with fewer live lanes steps all-dead chunks,
     which is exact because parked lanes fail every gate."""
     r = state.orig.shape[0]
-    chunk = CHUNK if r % CHUNK == 0 else r
-    n_chunks = r // chunk
+    chunk, n_chunks = chunk_layout(r)
     slot = torch.arange(r, device=state.orig.device)
-    dead_key = 1 << 30
     live = count_live(state.alive, live_sync)
     in_c0 = False
     it = 0
     while it < max_iters and live > 0:
         if not in_c0:
-            key = sorting.ray_keys(
-                state.orig, state.dirn, static.aabb_lo, static.aabb_hi
-            )
-            perm = torch.argsort(
-                torch.where(state.alive, key, dead_key), stable=True
-            )
-            state = RayState(*(x[perm] for x in state))
-            slot = slot[perm]
-        in_c0 = in_c0 or live <= min(chunk, SKIP_SORT_MAX)
+            state, slot = sort_wavefront(state, slot, static)
+        in_c0 = in_c0 or live <= sort_skip_max(chunk)
         n_live = min(-(-live // chunk), n_chunks)
         for ci in range(n_live):
             sl = slice(ci * chunk, (ci + 1) * chunk)

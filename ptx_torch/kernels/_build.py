@@ -10,7 +10,9 @@ an FMA, so the kernels round exactly like their plain torch versions.
 The wrappers share the rest: a wrapper runs its plain version only when
 every tensor lies on the CPU (:func:`on_cpu`), checks what it hands a kernel
 (:func:`check`), launches on torch's current stream and raises on a launch
-error (:func:`launch`), and counts each launch in ``LAUNCHES``.
+error (:func:`launch`), and counts each launch in ``LAUNCHES``.  A launch
+made while a CUDA graph is captured runs at each replay; the replay counts
+it (:func:`add_launches`).
 """
 
 from __future__ import annotations
@@ -75,6 +77,14 @@ build_seconds = 0.0
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def add_launches(tally) -> None:
+    """Count the launches of a CUDA graph's replay: ``tally`` maps a kernel
+    to its launches in the graph (what the wrappers counted while it was
+    captured, which launched nothing)."""
+    for k, n in tally.items():
+        LAUNCHES[k] += n
 
 
 def on_cpu(*tensors) -> bool:

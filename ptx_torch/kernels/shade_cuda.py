@@ -26,7 +26,7 @@ division by a python scalar.
 :func:`make_pallas_integrator` is ``render``'s "pallas" shader: per bounce,
 park, closest hit, material fetch, environment, the shadow-ray kernel (sun
 sample, shadow rays parked on ``exists & hit`` and packed), any hit, shade
-kernel.
+kernel; the bounces run on the device loop (``integrator/graphs.py``).
 """
 
 from __future__ import annotations
@@ -648,17 +648,14 @@ def inputs_from_arrays(a, device):
                                      t["shadow_hit"])
 
 
-def make_pallas_integrator(static: SceneStatic, cfg: RenderConfig,
-                           closest: Callable, any_hit: Callable,
-                           live_sync: Callable = None, tex_shard=None):
-    """The forward integrator of the fused shade schedule
-    (``shade_pallas.make_pallas_integrator``): the same images as
-    ``wavefront.make_integrator`` up to the schedule's rounding.  A launch
-    must be a multiple of 128 rays, as in the JAX package.  ``live_sync``
-    and ``tex_shard``: as ``wavefront.make_integrator`` takes them."""
+def _eager_integrator(static: SceneStatic, cfg: RenderConfig, step,
+                      live_sync: Callable = None):
+    """The fused integrator on the host loop (``wavefront.run_forward``,
+    one live-count sync per iteration): the route of a step that holds
+    collectives (multi-rank tp exchanges, ``live_sync``; gloo cannot be
+    captured in a CUDA graph).  ``step``: :func:`make_pallas_step`'s."""
     max_iters = max_iterations(static, cfg)
     do_compact = sorting.resolve_compact(static, cfg)
-    step = make_pallas_step(static, cfg, closest, any_hit, tex_shard=tex_shard)
 
     def integrate(fs: FlatScene, pixel_ids, sample_ids):
         r = pixel_ids.shape[0]
@@ -674,3 +671,25 @@ def make_pallas_integrator(static: SceneStatic, cfg: RenderConfig,
                            live_sync)
 
     return integrate
+
+
+def make_pallas_integrator(static: SceneStatic, cfg: RenderConfig,
+                           closest: Callable, any_hit: Callable,
+                           live_sync: Callable = None, tex_shard=None):
+    """The forward integrator of the fused shade schedule
+    (``shade_pallas.make_pallas_integrator``): the same images as
+    ``wavefront.make_integrator`` up to the schedule's rounding.  A launch
+    must be a multiple of 128 rays, as in the JAX package.  ``live_sync``
+    and ``tex_shard``: as ``wavefront.make_integrator`` takes them.
+
+    It runs on the device loop (``ptx_torch.integrator.graphs.DeviceLoop``:
+    CUDA graphs of the chunk step, the live count read one iteration late;
+    on CPU tensors the same schedule without capture), one integrator per
+    scene.  A step that holds collectives (``live_sync`` or ``tex_shard``:
+    tp ranks) stays on the host loop (:func:`_eager_integrator`)."""
+    step = make_pallas_step(static, cfg, closest, any_hit, tex_shard=tex_shard)
+    if live_sync is not None or tex_shard is not None:
+        return _eager_integrator(static, cfg, step, live_sync)
+    from ptx_torch.integrator.graphs import DeviceLoop
+
+    return DeviceLoop(static, cfg, step)

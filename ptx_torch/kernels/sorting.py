@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ptx_torch.scene.flatten import SceneStatic
+from ptx_torch.utils import device_constant
 
 # Bits per axis of the coarse morton grid (7 bits/axis = 21-bit cell id).
 MORTON_BITS = 7
@@ -50,8 +51,8 @@ def _expand_bits(x):
 def ray_keys(orig, dirn, lo, hi, bits: int = MORTON_BITS):
     """[R] int32 sort keys: morton cell of the origin (primary), direction
     octant (secondary)."""
-    lo = torch.tensor(lo, dtype=torch.float32, device=orig.device)
-    hi = torch.tensor(hi, dtype=torch.float32, device=orig.device)
+    lo = device_constant(tuple(lo), orig.device)
+    hi = device_constant(tuple(hi), orig.device)
     extent = torch.clamp(hi - lo, min=1e-30)
     n_cells = float(1 << bits)
     q = torch.clamp((orig - lo) / extent * n_cells, 0.0, n_cells - 1.0)
@@ -91,10 +92,8 @@ def park_with(orig, dirn, keep, constants):
     """:func:`park` with the scene's :func:`park_constants` given."""
     p_orig, p_dir = constants
     k = keep[..., None]
-    return (torch.where(k, orig, torch.tensor(p_orig, dtype=torch.float32,
-                                              device=orig.device)),
-            torch.where(k, dirn, torch.tensor([p_dir] * 3, dtype=torch.float32,
-                                              device=orig.device)))
+    return (torch.where(k, orig, device_constant(tuple(p_orig), orig.device)),
+            torch.where(k, dirn, device_constant((p_dir,) * 3, orig.device)))
 
 
 def make_sorting_backend(closest, any_hit, static: SceneStatic):

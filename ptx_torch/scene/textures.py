@@ -23,6 +23,7 @@ from ptx_torch.scene.flatten import (
     SLOT_OPACITY,
     SLOT_ROUGHNESS,
 )
+from ptx_torch.utils import device_constant
 
 
 class TexShard(NamedTuple):
@@ -146,9 +147,8 @@ def material_lookup(fs: FlatScene, mat_id, uv, static=None, shard=None):
             - 1.0
         )
     else:
-        tangent_normal = torch.tensor(
-            [0.0, 0.0, 1.0], dtype=torch.float32, device=uv.device
-        ).expand(uv.shape[:-1] + (3,))
+        tangent_normal = device_constant((0.0, 0.0, 1.0), uv.device).expand(
+            uv.shape[:-1] + (3,))
 
     return dict(
         albedo=albedo,

@@ -13,17 +13,22 @@ The JAX package's ``compile_cache_dir`` / ``enable_compile_cache`` point
 XLA's persistent compile cache and are not ported: the port compiles no
 XLA, and its kernel library is cached by ``ptx_torch.kernels._build`` (a
 build per source hash under ``ptx_torch/build/``).
+
+:func:`device_constant` holds the small constant tensors of the per-bounce
+code (scene bounds, park values, environment factor), one per device.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import logging
 import os
 import time
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 log = logging.getLogger("ptx_torch")
@@ -87,6 +92,23 @@ class Metrics:
         text = "\n".join(lines)
         log.info("metrics:\n%s", text)
         return text
+
+
+def device_constant(values, device):
+    """The float32 tensor of ``values`` (a number or a tuple of them) on
+    ``device``, made once per (float32 bits, device) and shared by every
+    caller, who must not write to it.  ``torch.tensor(..., device=)`` makes
+    a synchronous host-to-device copy on each call, which CUDA graph
+    capture refuses and which stalls the host's queue of launches.  The
+    bits key the cache, so -0.0 and 0.0 stay apart."""
+    arr = np.asarray(values, np.float32)
+    return _device_constant(arr.tobytes(), arr.shape, torch.device(device))
+
+
+@functools.lru_cache(maxsize=256)
+def _device_constant(data: bytes, shape, device):
+    host = np.frombuffer(data, np.float32).reshape(shape).copy()
+    return torch.from_numpy(host).to(device)
 
 
 @contextlib.contextmanager
