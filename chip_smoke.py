@@ -116,7 +116,17 @@ Phases (any failure raises, and the exit code is then non-zero):
    frame at 8 spp in 30,720- and 25,600-pixel launches, planned (every
    closest sweep against the walk of every tile in order on the same rays:
    each differing winner a tie of its truncated t, counted; the differing
-   pixels counted) and with every tile walked in order (bit-equal).
+   pixels counted) and with every tile walked in order (bit-equal); (f)
+   in the two ranks of (b), each layout's distributed training step
+   (``parallel.dist.make_distributed_train_step``: value, gradient and one
+   Adam update of ``mat_albedo`` and ``mat_emissive``) on the smoke scene
+   at 128x128, 4 spp, 4 bounces: each rank's plan and sweeps counted (> 0)
+   and no plain version called, the two ranks' loss, gradients and
+   parameters after the update bit-equal, the loss and gradients within
+   1e-5 of the one-device ``make_batch_value_and_grad_fn`` (the pixels a
+   near tie flipped left out on both sides: each side's own image is its
+   target there), and per rank grad-paths/s (fastest of 3), peak device
+   memory and the collective helpers' share of a step and its bytes.
 13. the device loop (``ptx_torch.integrator.graphs.DeviceLoop``: CUDA
    graphs of the chunk step and the sort, the live count read one
    iteration late), the fused integrator's loop in phases 5-12 too:
@@ -1655,6 +1665,16 @@ PLAIN_VERSIONS = (("intersect_cuda", "_sweep"), ("intersect_cuda", "_small_sweep
                   ("intersect_cuda", "_frustum_gate"), ("intersect_cuda", "pack_tris"),
                   ("shade_cuda", "_shade"), ("shade_cuda", "_shadow_rays"))
 SHARED = "two ranks time-sharing one H100 over gloo"
+# The distributed training step (phase 12 (f), multirank_check.py
+# --backward): phase 10's backward shape (bench.BACKWARD_SHAPE) on the
+# smoke scene with the tile traversal, the parameters of ptx's shard_map
+# training step, its Adam rate, and the seed of its target (uniform in
+# [0, 1), not the scene's own image).
+GRAD_SHAPE = dict(width=128, height=128, samples=4, bounces=4)
+GRAD_FIELDS = ("mat_albedo", "mat_emissive")
+GRAD_LR = 1e-2
+GRAD_TARGET_SEED = 11
+GRAD_REPS = 3
 # The launch-composition check: a 640x480 frame traced in the single
 # device's 30,720-pixel launches and in the 25,600-pixel launches of four
 # ray-parallel ranks (ptx_torch.parallel.dist.launch_pixels).
@@ -1745,13 +1765,145 @@ def run_layout(fs, static, cfg, plan, comm, dev, timed=(True,), plain=None):
     return out
 
 
+def grad_config(shape):
+    from ptx_torch.config import RenderConfig
+
+    return RenderConfig(intersector="pallas", **shape)
+
+
+def grad_target(cfg, dev):
+    """The training step's target [W * H, 3] on ``dev``, from
+    GRAD_TARGET_SEED."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(GRAD_TARGET_SEED)
+    return torch.from_numpy(rng.uniform(
+        0.0, 1.0, (cfg.width * cfg.height, 3)).astype(np.float32)).to(dev)
+
+
+def grad_image(integrate, fs, cfg, first, count):
+    """The per-pixel mean radiance over pixels ``first .. first + count -
+    1`` through the differentiable ``integrate``, without autograd, in the
+    launches of ``inverse.slice_value_and_grad_fn`` (all samples in one
+    launch, pixel chunks of ``_largest_divisor_leq``), so its values are
+    the forward's of the value and gradient bit for bit."""
+    import torch
+
+    from ptx_torch import render as R
+    from ptx_torch.diff import inverse
+
+    k, dev = cfg.samples, fs.tri_a.device
+    chunk = inverse._largest_divisor_leq(count, R.MAX_RAYS_PER_LAUNCH // k)
+    smp = torch.arange(k, dtype=torch.int32, device=dev).repeat_interleave(chunk)
+    parts = []
+    with torch.no_grad():
+        for lo in range(first, first + count, chunk):
+            pix = lo + torch.arange(chunk, dtype=torch.int32, device=dev)
+            radiance, _ = integrate(fs, pix.repeat(k), smp)
+            parts.append(radiance.reshape(k, chunk, 3).sum(0) / k)
+    return torch.cat(parts)
+
+
+def single_grad_image(fs, static, cfg, dev):
+    """The one-device image of the training step's forward (the scan of
+    ``make_batch_value_and_grad_fn`` on the same backend)."""
+    from ptx_torch import render as R
+    from ptx_torch.diff import inverse
+
+    integrate = inverse._resolve_diff_integrator(
+        static, cfg, *R.get_backend(static, cfg, dev), GRAD_FIELDS, dev)
+    return grad_image(integrate, fs, cfg, 0, cfg.width * cfg.height)
+
+
+def flip_target(target, image, flips):
+    """``target`` with each pixel of ``flips`` replaced by ``image``'s: a
+    pixel whose Monte Carlo path flipped (a near tie decided otherwise)
+    then adds no residual and no gradient on either side."""
+    import torch
+
+    return torch.where(flips[:, None], image, target)
+
+
+def run_train_layout(fs, static, cfg, plan, comm, dev, target, single_image,
+                     plain, reps=GRAD_REPS):
+    """The distributed training step of one layout on this rank, as phase
+    12's ranks and ``multirank_check.py --backward`` run it: the rank's
+    image of the step's forward against ``single_image`` (the one-device
+    one; the pixels off by more than COLOR_ATOL are flips, and each side's
+    own image is its target there); then, with the launch counters and the
+    plain-version counters set to 0 just before and read just after, one
+    value and gradient (the checked one); ``reps`` more, each from a
+    barrier (the fastest is the rate), with the peak device memory over
+    them; last one ``make_distributed_train_step`` step from a barrier
+    with the collective helpers' clock on.  Returns a dict of numpy
+    arrays and numbers."""
+    import torch
+    import torch.distributed as tdist
+
+    from ptx_torch.kernels import _build
+    from ptx_torch.parallel import dist as pdist
+    from ptx_torch.parallel import mesh as pmesh
+
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def timed_call(fn):
+        tdist.barrier()
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0
+
+    mesh = pmesh.make_mesh(plan, dev)
+    fs, static = pdist.prepare_scene(fs, static, cfg, plan, mesh, dev)
+    start, stop = pdist.pixel_range(mesh, comm, cfg.width * cfg.height)
+    own = grad_image(pdist.diff_integrator(static, cfg, mesh, plan, comm,
+                                           GRAD_FIELDS, dev),
+                     fs, cfg, start, stop - start)
+    flips = (own - single_image[start:stop]).abs().amax(-1) > COLOR_ATOL
+    target = target.clone()
+    target[start:stop] = flip_target(target[start:stop], own, flips)
+    params = {f: getattr(fs, f) for f in GRAD_FIELDS}
+    args = (static, cfg, mesh, plan, target, cfg.samples, comm, GRAD_FIELDS)
+    vg = pdist.make_distributed_value_and_grad_fn(*args, device=dev)
+    _build.reset_launches()
+    plain.clear()
+    loss, grads = vg(params, fs)
+    sync()
+    out = dict(launches=dict(_build.LAUNCHES), plain_calls=dict(plain),
+               loss=float(loss), flips=(start + flips.nonzero()[:, 0]).tolist(),
+               **{f"grad.{f}": g.cpu().numpy() for f, g in grads.items()})
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    out["walls"] = [timed_call(lambda: vg(params, fs))[1] for _ in range(reps)]
+    out["peak_bytes"] = torch.cuda.max_memory_allocated() if cuda else None
+    step = pdist.make_distributed_train_step(*args, device=dev, lr=GRAD_LR)
+    leaves, opt = step.init(params)
+    pdist.STATS.reset(timed=True)
+    _, out["step_s"] = timed_call(lambda: step(leaves, opt, fs))
+    st = pdist.STATS
+    out.update(collective_s=st.seconds, collective_calls=st.calls,
+               bytes_per_step=st.bytes,
+               **{f"param.{f}": p.detach().cpu().numpy()
+                  for f, p in leaves.items()})
+    pdist.STATS.reset(timed=False)
+    return out
+
+
 def rank_worker(port: int, rank: int, out: str, spec: dict) -> int:
     """One of two gloo ranks of phase 12 (``chip_smoke.py --rank-worker``):
     each layout of DIST_LAYOUTS through :func:`run_layout` (its launches
     and plain calls counted, then its sample loop timed with the collective
-    helpers' clock on); then the textured quads with the texel pack
-    replicated and sharded.  Writes ``rank<r>.json`` and each layout's
-    image."""
+    helpers' clock on); each layout's training step through
+    :func:`run_train_layout` (against the one-device image in
+    ``grad_single.npy``); then the textured quads with the texel pack
+    replicated and sharded.  Writes ``rank<r>.json``, each layout's image
+    and each training step's gradients and parameters."""
     import numpy as np
     import torch
 
@@ -1782,6 +1934,18 @@ def rank_worker(port: int, rank: int, out: str, spec: dict) -> int:
         save(name, run, wall_s=run["walls"][0], collective_s=run["collective_s"],
              collective_calls=run["collective_calls"],
              bytes_per_sample=run["bytes_per_sample"], k=run["k"])
+
+    gcfg = grad_config(spec["grad_shape"])
+    target = grad_target(gcfg, dev)
+    single_image = torch.from_numpy(
+        np.load(os.path.join(out, "grad_single.npy"))).to(dev)
+    for name, dp, tp, comm in DIST_LAYOUTS:
+        run = run_train_layout(fs, static, gcfg, pmesh.Plan(dp, tp, tp > 1),
+                               comm, dev, target, single_image, plain)
+        arrays = {k: run.pop(k) for k in list(run)
+                  if k.startswith(("grad.", "param."))}
+        np.savez(os.path.join(out, f"grad_{name}.rank{rank}.npz"), **arrays)
+        report[f"grad_{name}"] = run
 
     tex_fs, tex_static = flatten(make_textured_quads(3))
     tex_cfg = R.RenderConfig(environment_factor=(0.0, 0.0, 0.0),
@@ -1969,16 +2133,126 @@ def check_composition(fs_np, static_np, dev):
     return moved, diffs[0]
 
 
+def check_launches(name, kernels, reports, dev):
+    """Each rank's launches of ``kernels`` in run ``name`` (> 0) and its
+    calls of the plain versions (none), logged; a CPU rehearsal runs the
+    plain versions and only logs."""
+    for r, rep in enumerate(reports):
+        got = rep[name]
+        counts = {k: got["launches"][k] for k in kernels}
+        log(f"  rank {r} {name}: launches {counts}, plain calls "
+            f"{got['plain_calls'] or 'none'}")
+        if dev.type != "cuda":
+            continue
+        if min(counts.values()) <= 0:
+            raise AssertionError(f"rank {r} {name}: a kernel of the path "
+                                 f"never launched: {counts}")
+        if got["plain_calls"]:
+            raise AssertionError(f"rank {r} {name} called plain versions: "
+                                 f"{got['plain_calls']}")
+
+
+def single_value_and_grad(fs, static, cfg, dev, target, reps=0):
+    """The one-device ``make_batch_value_and_grad_fn`` of the training step
+    on ``target``: ``(loss, grads, fastest wall s of reps more calls)``."""
+    from ptx_torch.diff import inverse
+
+    vg = inverse.make_batch_value_and_grad_fn(static, cfg, target, cfg.samples,
+                                              param_fields=GRAD_FIELDS)
+    params = {f: getattr(fs, f) for f in GRAD_FIELDS}
+    loss, grads = vg(params, fs)
+    walls = [timed(lambda: vg(params, fs), dev)[1] / 1e3 for _ in range(reps)]
+    return float(loss), grads, min(walls, default=None)
+
+
+def compare_train_step(name, ranks, fs, static, cfg, dev, target,
+                       single_image):
+    """Rank 0's loss and gradients of a layout against the one-device value
+    and gradient (the flipped pixels of every rank left out on both
+    sides), after checking every rank's loss, gradients and parameters
+    after the Adam step equal to rank 0's bit for bit.  ``ranks``: each
+    rank's dict (its report and arrays).  Returns ``(loss relative error,
+    {field: gradient relative L2}, pixels left out)``; raises beyond
+    ROUTE_REL_L2, or when fewer than MIN_PIXEL_SHARE of the pixels agree."""
+    import numpy as np
+    import torch
+
+    for r, got in enumerate(ranks[1:], 1):
+        for key in [k for k in ranks[0] if k == "loss" or k.startswith(
+                ("grad.", "param."))]:
+            if not np.array_equal(got[key], ranks[0][key]):
+                raise AssertionError(f"{name}: rank {r}'s {key} differs from "
+                                     "rank 0's")
+    flips = torch.zeros(cfg.width * cfg.height, dtype=torch.bool, device=dev)
+    for got in ranks:
+        flips[got["flips"]] = True
+    n_flips = int(flips.sum())
+    if 1.0 - n_flips / flips.numel() < MIN_PIXEL_SHARE:
+        raise AssertionError(f"{name}: {n_flips} pixels flipped")
+    loss, grads, _ = single_value_and_grad(
+        fs, static, cfg, dev, flip_target(target, single_image, flips))
+    if not all(np.isfinite(ranks[0][f"grad.{f}"]).all() for f in GRAD_FIELDS):
+        raise AssertionError(f"{name}: a gradient is not finite")
+    loss_err = abs(ranks[0]["loss"] - loss) / abs(loss)
+    errs = {f: rel_l2(torch.from_numpy(ranks[0][f"grad.{f}"]),
+                      grads[f].cpu()) for f in GRAD_FIELDS}
+    if loss_err > ROUTE_REL_L2 or max(errs.values()) > ROUTE_REL_L2:
+        raise AssertionError(f"{name}: loss {loss_err}, gradients {errs} "
+                             "against one device")
+    return loss_err, errs, n_flips
+
+
+def check_train_step(dev, reports, tmp, fs, static, cfg, single_image, smi):
+    """Phase 12 (f): each layout's training step in the two ranks against
+    one device (:func:`compare_train_step`), each rank's plan and sweeps
+    launched and no plain version called, then per rank grad-paths/s (the
+    fastest of GRAD_REPS), peak device memory, and the collective helpers'
+    share of the step's wall and its bytes."""
+    import numpy as np
+
+    target = grad_target(cfg, dev)
+    _, _, one = single_value_and_grad(fs, static, cfg, dev, target,
+                                      reps=GRAD_REPS)
+    paths = cfg.width * cfg.height * cfg.samples
+    log(f"(f) training step, {GRAD_FIELDS}: {cfg.width}x{cfg.height} "
+        f"{cfg.samples} spp {cfg.bounces} bounces; one device "
+        f"{paths / one:,.0f} grad-paths/s ({smi})")
+    for name, dp, tp, comm in DIST_LAYOUTS:
+        key = f"grad_{name}"
+        check_launches(key, SCAN_KERNELS, reports, dev)
+        ranks = [{**rep[key], **np.load(os.path.join(tmp, f"{key}.rank{r}.npz"))}
+                 for r, rep in enumerate(reports)]
+        loss_err, errs, n_flips = compare_train_step(
+            key, ranks, fs, static, cfg, dev, target, single_image)
+        log(f"(f) {name} (dp={dp} tp={tp} {comm}) vs one device: loss "
+            f"{loss_err:.3g}, gradients relative L2 "
+            + ", ".join(f"{f} {e:.3g}" for f, e in errs.items())
+            + f" ({n_flips} flipped pixels left out); the ranks' loss, "
+            "gradients and parameters after one Adam step bit-equal")
+        for r, t in enumerate(ranks):
+            peak = (f"{t['peak_bytes']:,} bytes peak" if t["peak_bytes"]
+                    is not None else "peak memory not measured")
+            log(f"  rank {r} {name}: {paths / min(t['walls']):,.0f} "
+                f"grad-paths/s (fastest of {len(t['walls'])}), {peak}; "
+                f"train step {t['step_s']:.3f} s, collectives "
+                f"{t['collective_s']:.3f} s = "
+                f"{100 * t['collective_s'] / t['step_s']:.1f} % of it in "
+                f"{t['collective_calls']} calls, {t['bytes_per_step']:,} bytes "
+                f"({SHARED}; {smi})")
+
+
 def check_distributed(dev, single, cfg, smi, scene=SLICE_SCENE,
-                      tex_shape=TEX_SHAPE):
+                      tex_shape=TEX_SHAPE, grad_shape=GRAD_SHAPE):
     """Phase 12: (a) one NCCL rank through torchrun and the CLI; (b) two
     gloo ranks sharing the card render ``scene`` at ``cfg`` as dp=2, tp=2
     reduce and tp=2 ring, each image against ``single`` (the main path's
     image: dp bit-equal, tp within the render-parity bound), every rank's
     launches > 0 and no plain version called, with paths/s, the collective
     share of the sample wall and the bytes per sample; (c) the textured
-    quads with a tp-sharded texel pack bit-equal to the replicated pack.
-    On the CPU (a rehearsal) the CLI's world is gloo too."""
+    quads with a tp-sharded texel pack bit-equal to the replicated pack;
+    (f) in the same ranks, each layout's distributed training step on
+    ``scene`` at ``grad_shape`` (:func:`check_train_step`).  On the CPU (a
+    rehearsal) the CLI's world is gloo too."""
     import numpy as np
 
     from ptx_torch import render as R
@@ -2015,9 +2289,14 @@ def check_distributed(dev, single, cfg, smi, scene=SLICE_SCENE,
         if same < MIN_PIXEL_SHARE:
             raise AssertionError("the 1-rank distributed CLI image disagrees")
 
-        # (b), (c) two gloo ranks on the card.
+        # (b), (c), (f) two gloo ranks on the card; first the one-device
+        # image of the training step's forward, for the ranks' flips.
+        gcfg = grad_config(grad_shape)
+        fs1, static1 = R.ensure_accel(*R.load_scene(scene), gcfg, device=dev)
+        single_image = single_grad_image(fs1, static1, gcfg, dev)
+        np.save(os.path.join(tmp, "grad_single.npy"), single_image.cpu().numpy())
         spec = dict(device=dev.type, scene=scene, shape=shape,
-                    tex_shape=tex_shape)
+                    tex_shape=tex_shape, grad_shape=grad_shape)
         port = _free_port()
         t0 = time.perf_counter()
         procs = [subprocess.Popen(
@@ -2051,19 +2330,7 @@ def check_distributed(dev, single, cfg, smi, scene=SLICE_SCENE,
                                   image=z["image"])
 
         def check_ranks(name, kernels):
-            for r, rep in enumerate(reports):
-                got = rep[name]
-                counts = {k: got["launches"][k] for k in kernels}
-                log(f"  rank {r} {name}: launches {counts}, plain calls "
-                    f"{got['plain_calls'] or 'none'}")
-                if dev.type != "cuda":  # a rehearsal: the plain versions
-                    continue
-                if min(counts.values()) <= 0:
-                    raise AssertionError(f"rank {r} {name}: a kernel of the "
-                                         f"path never launched: {counts}")
-                if got["plain_calls"]:
-                    raise AssertionError(f"rank {r} {name} called plain "
-                                         f"versions: {got['plain_calls']}")
+            check_launches(name, kernels, reports, dev)
             a, b = image(name, 0), image(name, 1)
             if not (np.array_equal(a.color, b.color)
                     and np.array_equal(a.alpha, b.alpha)):
@@ -2101,6 +2368,10 @@ def check_distributed(dev, single, cfg, smi, scene=SLICE_SCENE,
                     f"{t['collective_calls']} calls, "
                     f"{t['bytes_per_sample']:,.0f} bytes per sample, "
                     f"{t['k']} sample(s) per launch ({SHARED}; {smi})")
+
+        check_train_step(dev, reports, tmp, fs1, static1, gcfg, single_image,
+                         smi)
+        del fs1
 
         rep_img = check_ranks("tex_replicated", TEX_KERNELS)
         shd_img = check_ranks("tex_sharded", TEX_KERNELS)

@@ -26,6 +26,17 @@ clock on (their share of the wall, bytes per sample).  Rank 0 prints one
 line per layout and, last, one JSON object; any failed check raises, and
 the exit code is then non-zero.  ``--device cpu`` runs the same on the CPU
 over gloo (a rehearsal: plain versions, no launches).
+
+``--backward`` runs the distributed training step instead (at
+``chip_smoke.GRAD_SHAPE`` unless the size is given), every layout through
+``chip_smoke.run_train_layout`` as phase 12's ranks run it: each rank's
+plan and sweeps launched and no plain version called, every rank's loss,
+gradients and parameters after one Adam step equal to rank 0's, rank 0's
+against the single card's ``make_batch_value_and_grad_fn`` within
+``chip_smoke.ROUTE_REL_L2`` (flipped pixels left out), then per rank
+grad-paths/s (the fastest of 3), scaling against the single card, the
+collective helpers' share of a step's wall and its bytes, and peak device
+memory.
 """
 
 from __future__ import annotations
@@ -50,14 +61,80 @@ def layouts(world: int):
     return out
 
 
+RENDER_SHAPE = dict(width=256, height=256, samples=4, bounces=4)
+
+
+def backward(scene, shape, dev, world, rank, cards, log):
+    """The distributed training step over every layout of the world (see
+    the module's docstring); rank 0 logs one line per layout and, last,
+    one JSON object."""
+    import torch.distributed as dist
+
+    import chip_smoke as smoke
+    from ptx_torch import render as R
+    from ptx_torch.parallel import mesh as pmesh
+
+    cfg = smoke.grad_config(shape)
+    paths = cfg.width * cfg.height * cfg.samples
+    fs, static = R.load_scene(scene)
+    log(f"{world} ranks, training step on {scene} {cfg.width}x{cfg.height} "
+        f"{cfg.samples} spp {cfg.bounces} bounces, {smoke.GRAD_FIELDS}; "
+        f"cards: {cards}")
+    # Every rank's one-card image (for its flips), on its own card.
+    fs1, static1 = R.ensure_accel(fs, static, cfg, device=dev)
+    target = smoke.grad_target(cfg, dev)
+    single_image = smoke.single_grad_image(fs1, static1, cfg, dev)
+    one = None
+    if rank == 0:
+        _, _, one = smoke.single_value_and_grad(fs1, static1, cfg, dev, target,
+                                                reps=smoke.GRAD_REPS)
+        log(f"single card: {paths / one:,.0f} grad-paths/s (fastest of "
+            f"{smoke.GRAD_REPS}; {cards[0]})")
+    dist.barrier()
+    plain = smoke.count_plain_calls()
+    rows = []
+    for dp, tp, comm in layouts(world):
+        name = f"dp={dp} tp={tp} {comm}"
+        run = smoke.run_train_layout(fs, static, cfg, pmesh.Plan(dp, tp, tp > 1),
+                                     comm, dev, target, single_image, plain)
+        every = [None] * world
+        dist.all_gather_object(every, run)
+        if rank != 0:
+            continue
+        smoke.check_launches(name, smoke.SCAN_KERNELS,
+                             [{name: r} for r in every], dev)
+        loss_err, errs, n_flips = smoke.compare_train_step(
+            name, every, fs1, static1, cfg, dev, target, single_image)
+        fastest = [min(r["walls"]) for r in every]
+        row = dict(layout=name, loss_rel=loss_err, grad_rel_l2=errs,
+                   flipped_pixels=n_flips,
+                   grad_paths_per_s=[paths / w for w in fastest],
+                   speedup=one / max(fastest),
+                   collective_share=[r["collective_s"] / r["step_s"]
+                                     for r in every],
+                   bytes_per_step=[r["bytes_per_step"] for r in every],
+                   peak_bytes=[r["peak_bytes"] for r in every])
+        rows.append(row)
+        log(f"{name}: grad-paths/s per rank "
+            f"{', '.join(f'{g:,.0f}' for g in row['grad_paths_per_s'])} "
+            f"({row['speedup']:.2f}x one card); loss {loss_err:.3g}, "
+            f"gradients relative L2 {max(errs.values()):.3g} ({n_flips} "
+            "flipped pixels left out), ranks bit-equal; collectives "
+            f"{', '.join(f'{100 * c:.1f}' for c in row['collective_share'])} "
+            f"% of each rank's step, {row['bytes_per_step'][0]:,} bytes per "
+            f"step per rank; peak {row['peak_bytes']} bytes ({cards[0]})")
+    log(json.dumps({"single_grad_paths_per_s": paths / one if rank == 0 else None,
+                    "cards": cards, "layouts": rows}))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--scene", default="arch:300000")
-    ap.add_argument("--width", type=int, default=256)
-    ap.add_argument("--height", type=int, default=256)
-    ap.add_argument("--samples", type=int, default=4)
-    ap.add_argument("--bounces", type=int, default=4)
+    for key in ("width", "height", "samples", "bounces"):
+        ap.add_argument(f"--{key}", type=int, default=None)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--backward", action="store_true",
+                    help="the distributed training step, not the render")
     args = ap.parse_args(argv)
 
     sys.path.insert(0, ROOT)
@@ -103,8 +180,14 @@ def main(argv=None) -> int:
         if cuda:
             torch.cuda.synchronize()
 
-    cfg = R.RenderConfig(width=args.width, height=args.height,
-                         samples=args.samples, bounces=args.bounces)
+    shape = {k: getattr(args, k) if getattr(args, k) is not None else v
+             for k, v in (smoke.GRAD_SHAPE if args.backward
+                          else RENDER_SHAPE).items()}
+    if args.backward:
+        backward(args.scene, shape, dev, world, rank, cards, log)
+        multihost.shutdown()
+        return 0
+    cfg = R.RenderConfig(**shape)
     paths = cfg.width * cfg.height * cfg.samples
     fs, static = R.load_scene(args.scene)
     log(f"{world} ranks, {args.scene} {cfg.width}x{cfg.height} {cfg.samples} spp "

@@ -107,12 +107,13 @@ def extract_params(fs: FlatScene, fields: Sequence[str]) -> Dict[str, torch.Tens
     return {f: getattr(fs, f) for f in fields}
 
 
-def _resolve_diff_integrator(static, cfg, closest, any_hit, param_fields,
-                             device):
-    """The general differentiable scan for every parameter set; a set with a
-    geometry field runs it on the tile traversal with ``split_geom_grad``
+def diff_backend(static, cfg, closest, any_hit, param_fields, device):
+    """The backend pair of the general differentiable scan for
+    ``param_fields``: ``(closest, any_hit)`` as given, except that a set
+    with a geometry field runs the tile traversal with ``split_geom_grad``
     (the [T, 3] vertex leaves take the gradient, not the [T, 40]
-    ``tri_attrs`` rows)."""
+    ``tri_attrs`` rows) and is refused under "bvh".  A caller that wraps
+    the pair (``parallel.dist``'s exchanges) wraps what this returns."""
     if set(param_fields) & set(_GEOM_ATTR_COLS):
         from ptx_torch.render import resolve_intersector
 
@@ -127,7 +128,15 @@ def _resolve_diff_integrator(static, cfg, closest, any_hit, param_fields,
             from ptx_torch.kernels import intersect_cuda
 
             closest, any_hit = intersect_cuda.make_backend(split_geom_grad=True)
-    return make_integrator(static, cfg, closest, any_hit, differentiable=True)
+    return closest, any_hit
+
+
+def _resolve_diff_integrator(static, cfg, closest, any_hit, param_fields,
+                             device):
+    """The general differentiable scan on :func:`diff_backend`."""
+    return make_integrator(static, cfg, *diff_backend(
+        static, cfg, closest, any_hit, param_fields, device),
+        differentiable=True)
 
 
 def _backend(static, cfg, device, closest, any_hit):
@@ -240,26 +249,44 @@ def make_batch_value_and_grad_fn(static: SceneStatic, cfg: RenderConfig,
     With geometry parameters and attached tiles, the tiles are packed once
     per call from the detached parameters (they only select the winners;
     gradients flow through the epilogue's recompute)."""
+    device = target.device
+    closest, any_hit = _backend(static, cfg, device, closest, any_hit)
+    integrator = _resolve_diff_integrator(static, cfg, closest, any_hit,
+                                          param_fields, device)
+    n_pixels = cfg.width * cfg.height
+    return slice_value_and_grad_fn(integrator, cfg, target, n_samples,
+                                   0, n_pixels, param_fields, max_chunk_rays)
+
+
+def slice_value_and_grad_fn(integrator, cfg: RenderConfig,
+                            target: torch.Tensor, n_samples: int, first: int,
+                            count: int, param_fields: Sequence[str],
+                            max_chunk_rays: Optional[int] = None):
+    """The body of :func:`make_batch_value_and_grad_fn` over the pixels
+    ``first .. first + count - 1`` of the frame (``target`` is the whole
+    frame's [P, 3]), through the differentiable ``integrator``:
+    ``vg(params, fs) -> (loss, grads)``, the slice's sum of squared errors
+    and its gradients over ``P * 3``, so the slices of a frame sum to the
+    frame's objective.  The slice is cut into chunks and sample groups as
+    the whole frame would be (``parallel.dist`` runs one slice per rank)."""
     from ptx_torch.render import MAX_RAYS_PER_LAUNCH
 
     device = target.device
-    closest, any_hit = _backend(static, cfg, device, closest, any_hit)
     n_pixels = cfg.width * cfg.height
     cap = max_chunk_rays or cfg.rays_per_batch or MAX_RAYS_PER_LAUNCH
     k = max(1, min(n_samples, cap))
     while n_samples % k:
         k -= 1
-    cp = _largest_divisor_leq(n_pixels, max(1, cap // k))
-    n_chunks = n_pixels // cp
+    cp = _largest_divisor_leq(count, max(1, cap // k))
+    n_chunks = count // cp
     n_groups = n_samples // k
-    integrator = _resolve_diff_integrator(static, cfg, closest, any_hit,
-                                          param_fields, device)
     geom_params = bool(set(param_fields) & set(_GEOM_ATTR_COLS))
 
     def chunk_loss(params, fs: FlatScene, c: int):
         """Sum of squared errors over pixel chunk ``c``."""
         fsx = inject_params(fs, params, keep_tiles=True)
-        pix = c * cp + torch.arange(cp, dtype=torch.int32, device=device)
+        lo = first + c * cp
+        pix = lo + torch.arange(cp, dtype=torch.int32, device=device)
         pixel_ids = pix.repeat(k)
 
         def one_group(g):
@@ -273,7 +300,7 @@ def make_batch_value_and_grad_fn(static: SceneStatic, cfg: RenderConfig,
             for g in range(n_groups):
                 total = total + checkpoint(one_group, g, use_reentrant=False)
         radiance = total / n_samples
-        return torch.sum((radiance - target[c * cp:(c + 1) * cp]) ** 2)
+        return torch.sum((radiance - target[lo:lo + cp]) ** 2)
 
     denom = float(n_pixels * 3)  # the mean over the [P, 3] image
 
@@ -297,6 +324,13 @@ def make_batch_value_and_grad_fn(static: SceneStatic, cfg: RenderConfig,
             for (k_, x), g in zip(leaves.items(), grads)}
 
     return value_and_grad
+
+
+def adam(params: Dict[str, torch.Tensor], lr: float) -> torch.optim.Adam:
+    """``torch.optim.Adam`` over the leaves ``params`` with optax's
+    defaults (betas 0.9 / 0.999, eps 1e-8 outside the root)."""
+    return torch.optim.Adam(list(params.values()), lr=lr, betas=(0.9, 0.999),
+                            eps=1e-8)
 
 
 def render_grad(fs: FlatScene, static: SceneStatic, cfg: RenderConfig,
@@ -327,8 +361,7 @@ def optimize(fs: FlatScene, static: SceneStatic, cfg: RenderConfig,
                                          param_fields=tuple(init_params))
     params = {k: v.detach().clone().requires_grad_(True)
               for k, v in init_params.items()}
-    opt = torch.optim.Adam(list(params.values()), lr=lr, betas=(0.9, 0.999),
-                           eps=1e-8)
+    opt = adam(params, lr)
     history = []
     for step in range(steps):
         val, grads = vg_fn(params, fs)

@@ -32,6 +32,11 @@ def cross(a, b):
     )
 
 
+def length(a):
+    """Euclidean length over the trailing axis."""
+    return torch.sqrt(dot(a, a))
+
+
 def normalize(a, eps: float = 1e-20):
     """Normalize over the trailing axis; safe at zero length."""
     return a * torch.rsqrt(torch.clamp(vdot(a, a), min=eps))
@@ -64,6 +69,11 @@ def equirectangular_proj(direction):
 def srgb_encode(linear):
     """Linear -> display, gamma 2.2."""
     return torch.pow(torch.clamp(linear, min=0.0), 1.0 / 2.2)
+
+
+def srgb_decode(encoded):
+    """Display -> linear, gamma 2.2."""
+    return torch.pow(torch.clamp(encoded, min=0.0), 2.2)
 
 
 def orthonormal_basis(normal):

@@ -16,6 +16,12 @@ the mesh's groups:
   and the blocks travel around the row's ring, carrying their running best
   hit (the ring-attention schedule: 1/tp the rays per rank).
 
+Inverse rendering over the ranks (:func:`make_distributed_train_step`):
+each rank takes the value and gradient of its pixel slice through the same
+exchanges, and one all-reduce gives every rank the frame's loss and
+gradients, so each rank's replica of the parameters and of the Adam state
+stays equal to every other's.
+
 Every rank must issue the same collectives in the same order.  The
 wrappers below always issue theirs, whatever their rank's rays; the loop's
 live counts are the largest over the world (``live_sync``), so every rank
@@ -317,6 +323,52 @@ def launch_pixels(plan: pmesh.Plan, comm: str, n_pixels: int) -> int:
     return n_pixels // ways
 
 
+def _check_layout(static: SceneStatic, plan: pmesh.Plan, comm: str):
+    """Raise ``ValueError`` for a layout the exchanges cannot serve."""
+    if plan.scene_sharded and static.n_bvh_nodes > 0 and not static.shard_local:
+        raise ValueError(
+            "scene-sharded plan with a globally-built BVH: prepare the "
+            "scene with prepare_scene()/build_shard_scene() so every shard "
+            "holds a self-contained BVH over its own triangles"
+        )
+    if static.tex_shard_len > 0 and comm == "ring":
+        raise ValueError(
+            "sharded textures (tex_shard_len > 0) require comm='reduce' "
+            "(rays replicated over tp); ring mode shards rays over tp"
+        )
+    if comm not in ("reduce", "ring"):
+        raise ValueError(f"unknown comm {comm!r}")
+
+
+def _exchanges(static: SceneStatic, mesh, plan: pmesh.Plan, comm: str,
+               base_closest, base_any):
+    """This rank's backend with the scene axis's exchanges wrapped around
+    it, and the loop's hooks: ``(closest, any_hit, live_sync, tex_shard)``
+    for ``make_integrator`` / ``make_pallas_integrator`` (both hooks None
+    unless the scene is sharded)."""
+    from ptx_torch.scene.textures import TexShard
+
+    if not plan.scene_sharded:
+        return base_closest, base_any, None, None
+    if comm == "ring":
+        closest = ring_closest(base_closest, mesh)
+        any_hit = ring_any_hit(base_any, mesh)
+    else:
+        closest = sharded_closest(base_closest, mesh)
+        any_hit = sharded_any_hit(base_any, mesh)
+
+    # Trip counts agree over the whole world (strictly only a row must
+    # agree; one int32 max per bounce costs little).
+    def live_sync(n):
+        return all_reduce(mesh, n.reshape(1).to(torch.int32), "max", None)[0]
+
+    tex_shard = None
+    if static.tex_shard_len > 0:
+        tex_shard = TexShard(
+            mesh.tp_index, lambda x: all_reduce(mesh, x, "sum", mesh.tp_group))
+    return closest, any_hit, live_sync, tex_shard
+
+
 def make_distributed_sample_fn(
     static: SceneStatic,
     cfg: RenderConfig,
@@ -341,48 +393,15 @@ def make_distributed_sample_fn(
     its sample."""
     from ptx_torch import render as R
     from ptx_torch.kernels import sorting
-    from ptx_torch.scene.textures import TexShard
 
-    if plan.scene_sharded and static.n_bvh_nodes > 0 and not static.shard_local:
-        raise ValueError(
-            "scene-sharded plan with a globally-built BVH: prepare the "
-            "scene with prepare_scene()/build_shard_scene() so every shard "
-            "holds a self-contained BVH over its own triangles"
-        )
-    if static.tex_shard_len > 0 and comm == "ring":
-        raise ValueError(
-            "sharded textures (tex_shard_len > 0) require comm='reduce' "
-            "(rays replicated over tp); ring mode shards rays over tp"
-        )
-    if comm not in ("reduce", "ring"):
-        raise ValueError(f"unknown comm {comm!r}")
+    _check_layout(static, plan, comm)
     # The compacted loop sorts the wavefront itself: no per-call sorting
     # wrapper then (as make_integrator_for).
     chunk_active = sorting.resolve_compact(static, cfg)
-    base_closest, base_any = R.get_backend(
-        static, cfg, device, sort=False if chunk_active else None
-    )
-    live_sync = tex_shard = None
-    if plan.scene_sharded:
-        if comm == "ring":
-            closest = ring_closest(base_closest, mesh)
-            any_hit = ring_any_hit(base_any, mesh)
-        else:
-            closest = sharded_closest(base_closest, mesh)
-            any_hit = sharded_any_hit(base_any, mesh)
-
-        # Trip counts agree over the whole world (strictly only a row must
-        # agree; one int32 max per bounce costs little).
-        def live_sync(n):
-            return all_reduce(mesh, n.reshape(1).to(torch.int32), "max",
-                              None)[0]
-
-        if static.tex_shard_len > 0:
-            tex_shard = TexShard(
-                mesh.tp_index,
-                lambda x: all_reduce(mesh, x, "sum", mesh.tp_group))
-    else:
-        closest, any_hit = base_closest, base_any
+    closest, any_hit, live_sync, tex_shard = _exchanges(
+        static, mesh, plan, comm,
+        *R.get_backend(static, cfg, device,
+                       sort=False if chunk_active else None))
 
     n_pixels = cfg.width * cfg.height
     start, stop = pixel_range(mesh, comm, n_pixels)
@@ -426,6 +445,138 @@ def make_distributed_sample_fn(
         return radiance.reshape(k, n_local, 3), alpha.reshape(k, n_local)
 
     return batch_pass
+
+
+# --------------------------------------------------------------------------
+# The training step
+# --------------------------------------------------------------------------
+
+def diff_integrator(static: SceneStatic, cfg: RenderConfig, mesh,
+                    plan: pmesh.Plan, comm: str, param_fields, device="cuda"):
+    """This rank's general differentiable scan (``make_integrator(...,
+    differentiable=True)``) on ``diff.inverse.diff_backend`` with the
+    exchanges of :func:`make_distributed_sample_fn` and ``live_sync``
+    around it."""
+    from ptx_torch import render as R
+    from ptx_torch.diff import inverse
+    from ptx_torch.integrator.wavefront import make_integrator
+
+    _check_layout(static, plan, comm)
+    closest, any_hit = inverse.diff_backend(
+        static, cfg, *R.get_backend(static, cfg, device), param_fields, device)
+    closest, any_hit, live_sync, tex_shard = _exchanges(
+        static, mesh, plan, comm, closest, any_hit)
+    return make_integrator(static, cfg, closest, any_hit, differentiable=True,
+                           live_sync=live_sync, tex_shard=tex_shard)
+
+
+def make_distributed_value_and_grad_fn(
+    static: SceneStatic,
+    cfg: RenderConfig,
+    mesh,
+    plan: pmesh.Plan,
+    target: torch.Tensor,
+    n_samples: int,
+    comm: str = "reduce",
+    param_fields=("mat_albedo", "mat_emissive"),
+    max_chunk_rays: Optional[int] = None,
+    device="cuda",
+):
+    """``vg(params, fs_local) -> (loss, grads)``, the objective of
+    ``diff.inverse.make_batch_value_and_grad_fn`` over the whole frame
+    (``target`` [W * H, 3], samples ``0 .. n_samples - 1``), the same on
+    every rank.
+
+    Each rank runs the one-device body on its slice
+    (:func:`pixel_range`, cut into chunks and sample groups as one device
+    cuts the frame) through :func:`diff_integrator`, whose ``live_sync``
+    makes every rank step the scan, and a checkpointed group's recompute
+    in backward, in the same order.  The slices' losses and
+    gradients are summed over the world in one :func:`all_reduce`; in
+    reduce mode the tp ranks of a row trace the same pixels, so the sum is
+    divided by tp (``ptx``'s shard_map transpose does the same to a
+    tp-replicated output).  Summing over the world rather than over the dp
+    group gives every rank the same bits even where a row's ranks differ
+    in the order of the backward's scatter-adds.
+
+    Raises ``ValueError``, before any collective, for a geometry field
+    under tp > 1 or ``tex_texels`` with a sharded texel pack: their
+    gradients would cross an exchange that carries none."""
+    from ptx_torch.diff import inverse
+
+    # No scene-axis exchange carries a gradient: the masked-sum payload of
+    # a closest hit and the sharded-texel gather are all-reduces of copies.
+    geom = [f for f in param_fields if f in inverse._GEOM_ATTR_COLS]
+    if geom and plan.tp > 1:
+        raise ValueError(
+            f"geometry parameters {geom} under tp={plan.tp}: the closest "
+            "hit's masked-sum payload is an all-reduce that carries no "
+            "gradient, so the vertex gradient would be 0; use tp=1")
+    if "tex_texels" in param_fields and static.tex_shard_len > 0:
+        raise ValueError(
+            "tex_texels with a sharded texel pack (tex_shard_len > 0): the "
+            "texel gather's sum over tp carries no gradient; shard the "
+            "scene with replicated textures")
+    start, stop = pixel_range(mesh, comm, cfg.width * cfg.height)
+    local = inverse.slice_value_and_grad_fn(
+        diff_integrator(static, cfg, mesh, plan, comm, param_fields, device),
+        cfg, target, n_samples, start, stop - start, param_fields,
+        max_chunk_rays)
+    copies = plan.tp if comm == "reduce" else 1
+
+    def value_and_grad(params, fs: FlatScene):
+        loss, grads = local(params, fs)
+        flat = all_reduce(mesh, torch.cat(
+            [loss.reshape(1), *(g.reshape(-1) for g in grads.values())]),
+            "sum", None) / copies
+        parts = flat[1:].split([g.numel() for g in grads.values()])
+        return flat[0], {k: p.reshape(grads[k].shape)
+                         for k, p in zip(grads, parts)}
+
+    return value_and_grad
+
+
+def make_distributed_train_step(
+    static: SceneStatic,
+    cfg: RenderConfig,
+    mesh,
+    plan: pmesh.Plan,
+    target: torch.Tensor,
+    n_samples: int,
+    comm: str = "reduce",
+    param_fields=("mat_albedo", "mat_emissive"),
+    max_chunk_rays: Optional[int] = None,
+    device="cuda",
+    lr: float = 1e-2,
+):
+    """One inverse-rendering step on every rank (the counterpart of the
+    shard_map training step ``ptx`` runs on a dp x tp mesh):
+    ``step(params, opt, fs_local) -> loss`` runs one value and gradient of
+    :func:`make_distributed_value_and_grad_fn` and one Adam update of
+    ``params`` in place.  Each rank keeps a replica of the parameters and
+    of the optimizer state; every rank gets the same gradients, so the
+    replicas stay bit-equal.  ``step.init(init_params) -> (params, opt)``
+    makes the leaves and ``diff.inverse.adam`` over them at ``lr``."""
+    from ptx_torch.diff import inverse
+
+    vg = make_distributed_value_and_grad_fn(
+        static, cfg, mesh, plan, target, n_samples, comm, param_fields,
+        max_chunk_rays, device)
+
+    def step(params, opt, fs: FlatScene):
+        loss, grads = vg(params, fs)
+        for k, p in params.items():
+            p.grad = grads[k]
+        opt.step()
+        return loss
+
+    def init(init_params):
+        params = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in init_params.items()}
+        return params, inverse.adam(params, lr)
+
+    step.init = init
+    return step
 
 
 def prepare_scene(fs: FlatScene, static: SceneStatic, cfg: RenderConfig,

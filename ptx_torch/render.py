@@ -332,6 +332,15 @@ def render(fs: FlatScene, static: SceneStatic, cfg: RenderConfig,
                               metrics=metrics, preview_path=preview_path)
 
 
+def render_gltf(path: str, cfg: RenderConfig, device=None,
+                **load_kwargs) -> RenderResult:
+    """Load the glTF file ``path`` (``load_kwargs`` go to
+    :func:`load_scene`, the config's quirks with them) and render it on
+    ``device``, by default the card."""
+    fs, static = load_scene(path, quirks=cfg.quirks, **load_kwargs)
+    return render(fs, static, cfg, device="cuda" if device is None else device)
+
+
 def progressive_render(fs: FlatScene, static: SceneStatic, cfg: RenderConfig,
                        sample_fn, batch_fn, k: int, device,
                        progress: Optional[Callable] = None,

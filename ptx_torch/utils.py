@@ -100,12 +100,14 @@ def device_constant(values, device):
     caller, who must not write to it.  ``torch.tensor(..., device=)`` makes
     a synchronous host-to-device copy on each call, which CUDA graph
     capture refuses and which stalls the host's queue of launches.  The
-    bits key the cache, so -0.0 and 0.0 stay apart."""
+    bits key the cache, so -0.0 and 0.0 stay apart.  The cache is never
+    evicted: a captured CUDA graph reads these tensors by pointer for as
+    long as it lives, and each entry is a few bytes."""
     arr = np.asarray(values, np.float32)
     return _device_constant(arr.tobytes(), arr.shape, torch.device(device))
 
 
-@functools.lru_cache(maxsize=256)
+@functools.cache
 def _device_constant(data: bytes, shape, device):
     host = np.frombuffer(data, np.float32).reshape(shape).copy()
     return torch.from_numpy(host).to(device)

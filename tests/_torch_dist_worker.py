@@ -7,7 +7,10 @@ Joins the world through ``ptx_torch.parallel.multihost.initialize`` (the
 torchrun environment; gloo, as there is no card), renders every case of
 :data:`CASES` whose world size is ``n`` with
 ``ptx_torch.parallel.dist.render_distributed`` and writes each rank's
-image to ``OUT_DIR/<case>.rank<r>.npz``; then, in ``mesh.rank<r>.json``,
+image to ``OUT_DIR/<case>.rank<r>.npz`` (a ``grad`` case: one step of
+``dist.make_distributed_train_step``, its loss, gradients and parameters
+after the Adam update, or the ``ValueError`` it raised and the collective
+calls made before it); then, in ``mesh.rank<r>.json``,
 whether every mesh of a layout reused the groups of its first.  Imports
 only ``ptx_torch`` and numpy; the test imports :data:`CASES` and builds
 the references.
@@ -27,10 +30,21 @@ BIG_SCENE = "synthetic:6000"
 SIZE = dict(width=32, height=16, samples=1, bounces=2)
 
 
+# The training step's parameters, Adam's rate and the seed of its target
+# (uniform in [0, 1), not the scene's own image); the sun-lit scene of its
+# cases with a sun or a vertex field (synthetic:3000 has no sun, so
+# neither gets a gradient there).
+LIT_SCENE = "arch:2000"
+MATERIALS = ("mat_albedo", "mat_emissive")
+LR = 1e-2
+TARGET_SEED = 11
+
+
 def _case(world, dp, tp, comm="reduce", scene=SCENE, kind="render",
-          shard_textures=False, **cfg):
+          shard_textures=False, params=MATERIALS, max_chunk_rays=None, **cfg):
     return dict(world=world, dp=dp, tp=tp, comm=comm, scene=scene, kind=kind,
-                shard_textures=shard_textures, cfg={**SIZE, **cfg})
+                shard_textures=shard_textures, params=params,
+                max_chunk_rays=max_chunk_rays, cfg={**SIZE, **cfg})
 
 
 def _cases():
@@ -63,10 +77,68 @@ def _cases():
             2, 1, 2, scene="textured", shard_textures=shard,
             intersector="brute", width=16, height=16, samples=2,
             environment_factor=(0.0, 0.0, 0.0))
+    # The distributed training step (materials unless named), and its two
+    # refusals.
+    for name, world, dp, tp, comm, isect, extra in [
+        ("grad_dp2_brute", 2, 2, 1, "reduce", "brute", {}),
+        ("grad_dp1_tp2_reduce_pallas", 2, 1, 2, "reduce", "pallas",
+         dict(params=MATERIALS + ("sun_energy",), scene=LIT_SCENE)),
+        ("grad_dp1_tp2_ring_brute", 2, 1, 2, "ring", "brute", {}),
+        ("grad_dp2_tp2_reduce_pallas", 4, 2, 2, "reduce", "pallas", {}),
+        ("grad_dp2_tp2_reduce_brute", 4, 2, 2, "reduce", "brute", {}),
+        ("grad_dp2_tri_a_brute", 2, 2, 1, "reduce", "brute",
+         dict(params=("tri_a",), scene=LIT_SCENE)),
+        # One sample per launch and one pixel per chunk: two checkpointed
+        # sample groups, recomputed (with their exchanges) in backward.
+        ("grad_groups_dp1_tp2_reduce", 2, 1, 2, "reduce", "brute",
+         dict(samples=2, width=4, height=4, max_chunk_rays=1)),
+        ("grad_refuse_tri_a_tp2", 2, 1, 2, "reduce", "brute",
+         dict(params=("tri_a",))),
+        ("grad_refuse_tex_texels_sharded", 2, 1, 2, "reduce", "brute",
+         dict(params=("tex_texels",), scene="textured", shard_textures=True,
+              width=16, height=16)),
+    ]:
+        c[name] = _case(world, dp, tp, comm, kind="grad", intersector=isect,
+                        **extra)
     return c
 
 
 CASES = _cases()
+
+
+def grad_target(cfg):
+    """The training step's target image [W * H, 3], from TARGET_SEED."""
+    import numpy as np
+
+    rng = np.random.default_rng(TARGET_SEED)
+    return rng.uniform(0.0, 1.0, (cfg.width * cfg.height, 3)).astype(np.float32)
+
+
+def train_step(fs, static, spec, plan, mesh):
+    """One distributed training step of a ``grad`` case on this rank: its
+    loss, gradients and parameters after the update, or the refusal's
+    message and the collective calls made before it."""
+    import torch
+
+    from ptx_torch.parallel import dist as pdist
+
+    cfg = config(spec)
+    fs, static = pdist.prepare_scene(fs, static, cfg, plan, mesh, "cpu")
+    calls = pdist.STATS.calls
+    try:
+        step = pdist.make_distributed_train_step(
+            static, cfg, mesh, plan, torch.from_numpy(grad_target(cfg)),
+            cfg.samples, spec["comm"], spec["params"], spec["max_chunk_rays"],
+            device="cpu", lr=LR)
+    except ValueError as e:
+        return dict(refused=str(e), calls=pdist.STATS.calls - calls)
+    params, opt = step.init({f: getattr(fs, f) for f in spec["params"]})
+    loss = step(params, opt, fs)
+    out = dict(loss=loss.numpy())
+    for f, p in params.items():
+        out[f"grad.{f}"] = p.grad.numpy()
+        out[f"param.{f}"] = p.detach().numpy()
+    return out
 
 
 def load(scene):
@@ -149,6 +221,9 @@ def main(out_dir: str) -> int:
                 shutil.copy(path, os.path.join(out_dir, f"{name}.at2.npz"))
             save(f"{name}.resumed",
                  render(config(spec, samples=4), checkpoint_path=path))
+        elif spec["kind"] == "grad":
+            np.savez(os.path.join(out_dir, f"{name}.rank{rank}.npz"),
+                     **train_step(fs, static, spec, plan, mesh))
         print(f"rank {rank}: {name} done", flush=True)
     with open(os.path.join(out_dir, f"mesh.rank{rank}.json"), "w") as f:
         json.dump(dict(layouts=len(groups), meshes=len(reused),

@@ -144,3 +144,19 @@ def test_another_scene_raises():
         loop(other, *ids)
     with pytest.raises(ValueError, match="multiple of 128"):
         loop(fs, ids[0][:100], ids[1][:100])
+
+
+def test_device_constant_outlives_any_number_of_others():
+    """A captured graph reads ``utils.device_constant``'s tensors by
+    pointer for as long as it lives, so the cache never lets one go: after
+    300 other distinct constants the first call's tensor is the same live
+    object at the same address."""
+    from ptx_torch import utils
+
+    first = utils.device_constant((0.25, -0.0, 3.0), "cpu")
+    ptr = first.data_ptr()
+    others = [utils.device_constant(float(i) + 0.5, "cpu") for i in range(300)]
+    assert len({id(t) for t in others}) == 300
+    again = utils.device_constant((0.25, -0.0, 3.0), "cpu")
+    assert again is first and again.data_ptr() == ptr
+    assert torch.equal(again, torch.tensor([0.25, -0.0, 3.0]))

@@ -20,9 +20,17 @@ test:
   for bit) and sharded textures (bit-equal to the replicated pack);
 * each layout's process groups made once, and the CLI's PNGs against the
   single process's (ray-parallel bit-equal, scene-parallel within the
-  render-parity bound).
+  render-parity bound);
+* the distributed training step (``grad`` cases): loss and gradients
+  against the port's one-device ``make_batch_value_and_grad_fn`` within
+  1e-5 (relative; relative L2), the parameters after one Adam step against
+  the one-device step, the two refusals raised before any collective, and
+  two layouts against ``ptx``'s shard_map training step (composed as
+  ``__graft_entry__.dryrun_multichip`` composes it) within 1e-4 (loss) and
+  1e-3 relative L2 (gradients).
 
-Every rank returns the whole image; each rank's is held equal to rank 0's.
+Every rank returns the whole image (the whole loss, gradients and
+parameters); each rank's is held equal to rank 0's, bit for bit.
 A world that fails fails its own test and every case it did not finish.
 """
 
@@ -290,3 +298,170 @@ def test_sharded_textures_match_replicated(worlds):
     np.testing.assert_array_equal(shd["alpha"], rep["alpha"])
     ref = _single("tex_tp2_sharded")
     np.testing.assert_allclose(shd["color"], ref["color"], rtol=1e-5, atol=1e-6)
+
+
+GRADS = [n for n, s in W.CASES.items()
+         if s["kind"] == "grad" and "refuse" not in n]
+REFUSALS = [n for n, s in W.CASES.items()
+            if s["kind"] == "grad" and "refuse" in n]
+# Two routes of the same torch code (the bound of tests/test_torch_diff.py);
+# against ptx, the bounds of tests/test_torch_inverse.py.
+GRAD_REL = 1e-5
+JAX_LOSS_REL, JAX_GRAD_REL = 1e-4, 1e-3
+
+
+def _ranks(worlds, name):
+    """Every rank's file of a case (missing: its world's error)."""
+    out, errors = worlds
+    world = W.CASES[name]["world"]
+    paths = [os.path.join(out, f"{name}.rank{r}.npz") for r in range(world)]
+    assert all(os.path.exists(p) for p in paths), errors[world]
+    return [dict(np.load(p)) for p in paths]
+
+
+def _step_result(worlds, name):
+    """Rank 0's loss, gradients and parameters after the Adam step of a
+    grad case, after checking every rank's equal to them bit for bit."""
+    ranks = _ranks(worlds, name)
+    for r, got in enumerate(ranks[1:], 1):
+        assert got.keys() == ranks[0].keys()
+        for key in ranks[0]:
+            np.testing.assert_array_equal(got[key], ranks[0][key],
+                                          err_msg=f"rank {r}: {key}")
+    return ranks[0]
+
+
+@functools.lru_cache(maxsize=None)
+def _single_step(name):
+    """The port's one-device value and gradient of a grad case's frame,
+    and the parameters after one Adam step from them."""
+    import torch
+
+    from ptx_torch.diff import inverse
+
+    spec = W.CASES[name]
+    cfg = W.config(spec)
+    fs, static = R.ensure_accel(*W.load(spec["scene"]), cfg, device="cpu")
+    vg = inverse.make_batch_value_and_grad_fn(
+        static, cfg, torch.from_numpy(W.grad_target(cfg)), cfg.samples,
+        param_fields=spec["params"], max_chunk_rays=spec["max_chunk_rays"])
+    loss, grads = vg({f: getattr(fs, f) for f in spec["params"]}, fs)
+    params = {f: getattr(fs, f).detach().clone().requires_grad_(True)
+              for f in spec["params"]}
+    opt = inverse.adam(params, W.LR)
+    for f, p in params.items():
+        p.grad = grads[f]
+    opt.step()
+    return (float(loss), {f: g.numpy() for f, g in grads.items()},
+            {f: p.detach().numpy() for f, p in params.items()})
+
+
+def _rel_l2(got, want) -> float:
+    return float(np.linalg.norm(got - want)
+                 / max(float(np.linalg.norm(want)), 1e-30))
+
+
+def _assert_adam_step(got, want, grad, lr):
+    """Parameters after one Adam step: within 1e-5 where the gradient is
+    above 1e-3 of its largest magnitude; elsewhere within 2 lr (a first
+    step moves a parameter by +-lr whatever its gradient's size, so the
+    sign of a tiny gradient decides it)."""
+    d = np.abs(got - want)
+    big = np.abs(grad) > 1e-3 * np.abs(grad).max()
+    assert (d[big] <= 1e-5).all(), float(d[big].max())
+    assert (d <= 2 * lr).all(), float(d.max())
+
+
+@pytest.mark.parametrize("name", GRADS)
+def test_distributed_grad_matches_single_device(worlds, name):
+    got = _step_result(worlds, name)
+    loss, grads, _ = _single_step(name)
+    assert np.isfinite(got["loss"]) and loss > 0
+    assert abs(float(got["loss"]) - loss) <= GRAD_REL * loss
+    for f, g in grads.items():
+        assert np.abs(g).max() > 0, f"{f}: no gradient to compare"
+        assert _rel_l2(got[f"grad.{f}"], g) <= GRAD_REL, f
+
+
+@pytest.mark.parametrize("name", GRADS)
+def test_distributed_adam_step_matches_single_device(worlds, name):
+    got = _step_result(worlds, name)
+    _, grads, params = _single_step(name)
+    for f, p in params.items():
+        _assert_adam_step(got[f"param.{f}"], p, grads[f], W.LR)
+
+
+@pytest.mark.parametrize("name", REFUSALS)
+def test_distributed_grad_refuses_before_any_collective(worlds, name):
+    """A vertex field under tp = 2 and the texels of a sharded pack raise
+    ValueError on every rank with no collective issued; the world still
+    exits cleanly (test_world_exits_cleanly)."""
+    for got in _ranks(worlds, name):
+        assert "carries no gradient" in str(got["refused"])
+        assert int(got["calls"]) == 0
+
+
+@pytest.mark.parametrize("name", ["grad_dp2_brute", "grad_dp2_tp2_reduce_brute"])
+def test_grad_matches_jax_shard_map_step(worlds, name):
+    """``ptx``'s training step composed as ``__graft_entry__.
+    dryrun_multichip`` composes it (``shard_map`` of the differentiable
+    integrator over a dp x tp mesh of the virtual CPU devices,
+    ``sharded_closest`` / ``sharded_any_hit`` on the scene axis,
+    ``inject_params``, ``jax.value_and_grad`` of the MSE, one
+    ``optax.adam`` update) on the case's scene, config and target."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+    from jax.sharding import PartitionSpec as P
+
+    from ptx import render as jrender
+    from ptx.config import RenderConfig
+    from ptx.diff.inverse import inject_params
+    from ptx.integrator.wavefront import make_integrator
+    from ptx.parallel import dist as jdist
+    from ptx.parallel import mesh as jmesh
+
+    spec = W.CASES[name]
+    got = _step_result(worlds, name)
+    plan = jmesh.Plan(dp=spec["dp"], tp=spec["tp"],
+                      scene_sharded=spec["tp"] > 1)
+    mesh = jmesh.make_mesh(plan)
+    cfg = RenderConfig(**spec["cfg"])
+    fs, static = jrender.load_scene(spec["scene"])
+    fs = jmesh.shard_scene(fs, mesh, plan.scene_sharded)
+    closest, any_hit = jrender.get_backend(static, cfg)
+    if plan.scene_sharded:
+        closest = jdist.sharded_closest(closest)
+        any_hit = jdist.sharded_any_hit(any_hit)
+    inner = jax.shard_map(
+        make_integrator(static, cfg, closest, any_hit, differentiable=True),
+        mesh=mesh,
+        in_specs=(jmesh.scene_shardings(mesh, plan.scene_sharded),
+                  P(jmesh.AXIS_RAYS), P(jmesh.AXIS_RAYS)),
+        out_specs=(P(jmesh.AXIS_RAYS), P(jmesh.AXIS_RAYS)),
+        check_vma=False)
+    n_pixels = cfg.width * cfg.height
+    target = jnp.asarray(W.grad_target(cfg))
+    pixel_ids = jnp.arange(n_pixels, dtype=jnp.int32)
+    sample_ids = jnp.zeros((n_pixels,), jnp.int32)
+
+    def loss_fn(params, fs):
+        radiance, _ = inner(inject_params(fs, params), pixel_ids, sample_ids)
+        return jnp.mean((radiance - target) ** 2)
+
+    opt = optax.adam(W.LR)
+
+    @jax.jit
+    def train_step(params, opt_state, fs):
+        val, grads = jax.value_and_grad(loss_fn)(params, fs)
+        updates, opt_state = opt.update(grads, opt_state, params)
+        return optax.apply_updates(params, updates), val, grads
+
+    params = {f: getattr(fs, f) for f in spec["params"]}
+    new, val, grads = train_step(params, opt.init(params), fs)
+    val = float(val)
+    assert abs(float(got["loss"]) - val) <= JAX_LOSS_REL * val
+    for f in spec["params"]:
+        g = np.asarray(grads[f])
+        assert _rel_l2(got[f"grad.{f}"], g) <= JAX_GRAD_REL, f
+        _assert_adam_step(got[f"param.{f}"], np.asarray(new[f]), g, W.LR)
