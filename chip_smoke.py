@@ -63,9 +63,11 @@ Phases (any failure raises, and the exit code is then non-zero):
 10. the differentiable path (``ptx_torch.diff``) on ``arch:300000`` at the
    JAX bench's backward shape, 128x128, 4 spp, 4 bounces: 65,536 rays in
    two 32,768-ray chunks of ``make_batch_value_and_grad_fn``.  (a) Its
-   route, the general scan (the CUDA plan and sweeps, the plain shade),
-   against the fast path (the fused kernels' forward: plan, closest, any,
-   shadow-ray setup and shade launch; the plain shade's backward at the
+   route, the general scan (the CUDA plan and sweeps, the plain shade; on
+   the card the device scan, held to the host scan in the same loss bit
+   for bit and its gradients within ROUTE_REL_L2), against the fast path
+   (the fused kernels' forward: plan, closest, any, shadow-ray setup and
+   shade launch; the plain shade's backward at the
    recorded hits) for albedo, emission, roughness and sun energy: the
    images within the image tolerance, each gradient finite and within
    ROUTE_REL_L2 (pixels where a Monte Carlo decision flipped are left
@@ -146,6 +148,29 @@ Phases (any failure raises, and the exit code is then non-zero):
    profiled sample of the host loop, its device time split by phase
    (plan, closest, any, shadow-ray setup, shade, sort, epilogue, material
    lookup, other).
+14. the device scan (``ptx_torch.diff.graphs.DeviceScan``: CUDA graphs of
+   each bounce step's forward and backward, the live count read one
+   iteration late), the route of the loss functions on the card (phases
+   10 and 12 (f) run it too) and ``inverse.make_diff_integrator``'s pick
+   there, against the host scan (``make_integrator(differentiable=True)``)
+   on the backward rows' scene and shape: (a)
+   ``torch.cuda.set_sync_debug_mode("error")`` around one eager 32,768-lane
+   step, forward and backward, for DIFF_FIELDS and ``tri_a``; (b) one
+   value and gradient through each scan: the loss bit-equal, each gradient
+   within ROUTE_REL_L2, for DIFF_FIELDS, ``tri_a`` (moved vertices, then
+   the scene's: the tiles repacked per call read in place) and the
+   translucent cell (passthrough steps, the lag's dead step); (c) one
+   launch's value and gradient through each: the device scan's kernel
+   launches (replays x their graphs' tallies) equal the host scan's plus
+   one step's per all-dead step; (d) grad-paths/s of the two scans in 3
+   turns each at 128x128 and at 256x256, 4 spp, for both sets; (e) the
+   device scan's busy share by CUDA events around its replays, each scan's
+   peak device memory, a profiled value and gradient of each at 128x128,
+   and the device scan's graphs, capture seconds and pool bytes; (f)
+   ``render_grad`` at 32x32 (DIFF_FIELDS; ``tri_a``, whose tiles are
+   packed inside each step) and ``make_batch_loss_fn`` over two sample
+   groups (the first group's forward run again before its backward)
+   through both scans, loss bit-equal, gradients within ROUTE_REL_L2.
 Every kernel's bound (the least time the card could take for the work of
 the timed launch: its operations at the float32 peak or its bytes at the
 HBM rate, whichever is larger) is computed from that launch's inputs.
@@ -1841,6 +1866,7 @@ def run_train_layout(fs, static, cfg, plan, comm, dev, target, single_image,
     import torch
     import torch.distributed as tdist
 
+    from ptx_torch.diff.graphs import DeviceScan
     from ptx_torch.kernels import _build
     from ptx_torch.parallel import dist as pdist
     from ptx_torch.parallel import mesh as pmesh
@@ -1862,9 +1888,13 @@ def run_train_layout(fs, static, cfg, plan, comm, dev, target, single_image,
     mesh = pmesh.make_mesh(plan, dev)
     fs, static = pdist.prepare_scene(fs, static, cfg, plan, mesh, dev)
     start, stop = pdist.pixel_range(mesh, comm, cfg.width * cfg.height)
-    own = grad_image(pdist.diff_integrator(static, cfg, mesh, plan, comm,
-                                           GRAD_FIELDS, dev),
-                     fs, cfg, start, stop - start)
+    integrate = pdist.diff_integrator(static, cfg, mesh, plan, comm,
+                                      GRAD_FIELDS, dev)
+    scan = "device" if isinstance(integrate, DeviceScan) else "host"
+    if cuda and scan != ("host" if plan.scene_sharded else "device"):
+        raise AssertionError(f"a {'tp' if plan.scene_sharded else 'dp'} rank "
+                             f"took the {scan} scan")
+    own = grad_image(integrate, fs, cfg, start, stop - start)
     flips = (own - single_image[start:stop]).abs().amax(-1) > COLOR_ATOL
     target = target.clone()
     target[start:stop] = flip_target(target[start:stop], own, flips)
@@ -1876,7 +1906,8 @@ def run_train_layout(fs, static, cfg, plan, comm, dev, target, single_image,
     loss, grads = vg(params, fs)
     sync()
     out = dict(launches=dict(_build.LAUNCHES), plain_calls=dict(plain),
-               loss=float(loss), flips=(start + flips.nonzero()[:, 0]).tolist(),
+               scan=scan, loss=float(loss),
+               flips=(start + flips.nonzero()[:, 0]).tolist(),
                **{f"grad.{f}": g.cpu().numpy() for f, g in grads.items()})
     if cuda:
         torch.cuda.reset_peak_memory_stats()
@@ -2232,7 +2263,8 @@ def check_train_step(dev, reports, tmp, fs, static, cfg, single_image, smi):
         for r, t in enumerate(ranks):
             peak = (f"{t['peak_bytes']:,} bytes peak" if t["peak_bytes"]
                     is not None else "peak memory not measured")
-            log(f"  rank {r} {name}: {paths / min(t['walls']):,.0f} "
+            log(f"  rank {r} {name}: {t['scan']} scan, "
+                f"{paths / min(t['walls']):,.0f} "
                 f"grad-paths/s (fastest of {len(t['walls'])}), {peak}; "
                 f"train step {t['step_s']:.3f} s, collectives "
                 f"{t['collective_s']:.3f} s = "
@@ -2758,6 +2790,351 @@ def check_device_loop(fs_np, static_np, cfg, dev, smi):
     return rates
 
 
+# The device scan (phase 14): the parameter sets it is held and timed on,
+# the second frame it is timed at (eight 32,768-ray chunks), and the order
+# of the two scans' timed turns.
+SCAN_SETS = (("materials", DIFF_FIELDS), ("tri_a", ("tri_a",)))
+SCAN_FRAME = dict(width=256, height=256, samples=4, bounces=4)
+SCAN_TURNS = ("host", "device", "device", "host", "host", "device")
+
+
+def scan_pair(static, cfg, fields, dev):
+    """``(host scan, device scan)`` for ``fields`` on the loss functions'
+    backend (``inverse.diff_backend`` on ``render.get_backend``): the host
+    scan ``make_integrator(differentiable=True)``, and what
+    ``inverse.make_diff_integrator`` returns, which on the card must be the
+    device scan (on the CPU, a rehearsal, it is built directly)."""
+    from ptx_torch import render as R
+    from ptx_torch.diff import inverse
+    from ptx_torch.diff.graphs import DeviceScan
+    from ptx_torch.integrator.wavefront import make_integrator
+
+    pair = inverse.diff_backend(static, cfg, *R.get_backend(static, cfg, dev),
+                                fields, dev)
+    scan = inverse.make_diff_integrator(static, cfg, *pair, fields, dev)
+    if not isinstance(scan, DeviceScan):
+        if dev.type == "cuda":
+            raise AssertionError("make_diff_integrator did not take the "
+                                 "device scan on the card")
+        scan = DeviceScan(static, cfg, *pair, *inverse.scan_fields(fields))
+    return make_integrator(static, cfg, *pair, differentiable=True), scan
+
+
+def scan_vgs(host, scan, cfg, target, fields):
+    """``{"host": vg, "device": vg}``: ``make_batch_value_and_grad_fn``'s
+    body (``inverse.slice_value_and_grad_fn`` over the frame) on each
+    scan."""
+    from ptx_torch.diff import inverse
+
+    n = cfg.width * cfg.height
+    return {name: inverse.slice_value_and_grad_fn(integ, cfg, target,
+                                                  cfg.samples, 0, n, fields)
+            for name, integ in (("host", host), ("device", scan))}
+
+
+def hold_scan(tag, vgs, scan, params, fs):
+    """(b) one value and gradient through each scan: the loss bit-equal,
+    each gradient finite and within ROUTE_REL_L2 (the backward's
+    scatter-adds sum in any order on the card).  Returns the device
+    scan's schedule."""
+    import torch
+
+    v_h, g_h = vgs["host"](params, fs)
+    v_d, g_d = vgs["device"](params, fs)
+    s = scan.schedule()
+    errs = {f: rel_l2(g_d[f], g_h[f]) for f in g_h}
+    log(f"(b) {tag}: loss {float(v_d):.9g} device scan, {float(v_h):.9g} host "
+        f"scan ({'bit-equal' if torch.equal(v_d, v_h) else 'DIFFERENT'}); "
+        "gradients relative L2 " + ", ".join(f"{f} {e:.3g}"
+                                             for f, e in errs.items())
+        + f"; last launch: counts {s['counts']}, {s['steps']} steps "
+        f"({s['host_steps']} on the host scan)")
+    if not torch.equal(v_d, v_h):
+        raise AssertionError(f"{tag}: the device scan's loss differs")
+    for f, e in errs.items():
+        if not bool(torch.isfinite(g_d[f]).all()) or e > ROUTE_REL_L2:
+            raise AssertionError(f"{tag}: d loss / d {f}: relative L2 {e}")
+        if float(g_h[f].abs().max()) == 0.0:
+            raise AssertionError(f"{tag}: d loss / d {f} is all zero")
+    return s
+
+
+def eager_scan_step(tag, scan, fs, params, cfg, dev):
+    """(a) one eager step of the scan, forward and backward, on one chunk's
+    wavefront under ``set_sync_debug_mode("error")``."""
+    import torch
+
+    from ptx_torch.diff.inverse import inject_params
+    from ptx_torch.integrator.wavefront import RayState, initial_state
+
+    pix, smp = scan_launch(cfg, dev)
+    init = initial_state(fs, cfg, pix, smp)
+
+    def run():
+        leaves = {f: v.detach().requires_grad_() for f, v in params.items()}
+        fsx = inject_params(fs, leaves, keep_tiles=True)
+        with torch.enable_grad():
+            ins = RayState(*(x.detach().requires_grad_(x.is_floating_point())
+                             for x in init))
+            out = scan.step(fsx, 0, ins)
+            outs = [x for x in out if x.requires_grad]
+            torch.autograd.grad(
+                outs, [*leaves.values(), *(x for x in ins if x.requires_grad)],
+                [torch.ones_like(x) for x in outs], allow_unused=True)
+
+    no_sync(f"{tag}: one eager {pix.shape[0]}-lane step, forward and "
+            "backward", run)
+
+
+def scan_launch(cfg, dev):
+    """The pixel and sample ids of the frame's first chunk, as
+    ``slice_value_and_grad_fn`` launches it."""
+    import torch
+
+    from ptx_torch import render as R
+    from ptx_torch.diff import inverse
+
+    k = cfg.samples
+    chunk = inverse._largest_divisor_leq(cfg.width * cfg.height,
+                                         R.MAX_RAYS_PER_LAUNCH // k)
+    pix = torch.arange(chunk, dtype=torch.int32, device=dev).repeat(k)
+    smp = torch.arange(k, dtype=torch.int32,
+                       device=dev).repeat_interleave(chunk)
+    return pix, smp
+
+
+def scan_launches(tag, host, scan, fs, params, cfg, dev):
+    """(c) one launch's value and gradient (the frame's first chunk) through
+    each scan, the counts set to 0 just before and read just after: the
+    device scan's launches (replays x their graphs' tallies) equal the host
+    scan's plus one step's for each all-dead step of the lag."""
+    import torch
+
+    from ptx_torch.diff.inverse import inject_params
+    from ptx_torch.kernels import _build
+
+    pix, smp = scan_launch(cfg, dev)
+
+    def run(integrate):
+        leaves = {f: v.detach().requires_grad_() for f, v in params.items()}
+        radiance, _ = integrate(inject_params(fs, leaves, keep_tiles=True),
+                                pix, smp)
+        torch.autograd.grad(radiance.sum(), list(leaves.values()),
+                            allow_unused=True)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    counts = {}
+    for name, integrate in (("host", host), ("device", scan)):
+        run(integrate)
+        _build.reset_launches()
+        run(integrate)
+        counts[name] = {k: v for k, v in _build.LAUNCHES.items() if v}
+    s = scan.schedule()
+    for name, v in counts["host"].items():
+        per_step, rest = divmod(v, s["host_steps"])
+        got = counts["device"].get(name)
+        if rest or got != v + per_step * s["dead_steps"]:
+            raise AssertionError(
+                f"(c) {tag}: {name} {got} on the device "
+                f"scan, {v} on the host scan over {s['host_steps']} steps, "
+                f"{s['dead_steps']} all-dead")
+    if dev.type == "cuda":
+        for name in SCAN_KERNELS:
+            if not counts["device"].get(name):
+                raise AssertionError(f"(c) {tag}: the device scan never "
+                                     f"launched the {name} kernel")
+    log(f"(c) {tag}, one {pix.shape[0]}-ray launch: {counts['device']} = the "
+        f"host scan's {counts['host']} + {s['dead_steps']} all-dead steps "
+        f"({s['steps']} steps replayed, forward and backward)")
+
+
+def scan_turns(tag, vgs, params, fs, cfg, dev, smi, turns):
+    """(d) one value and gradient per turn on each scan (grad-paths/s)."""
+    paths = cfg.width * cfg.height * cfg.samples
+    rates = {"host": [], "device": []}
+    for name in turns:
+        _, ms = timed(lambda: vgs[name](params, fs), dev)
+        rates[name].append(paths / ms * 1e3)
+    for name, r in rates.items():
+        log(f"(d) {tag}, {name} scan: " + ", ".join(f"{x:,.0f}" for x in r)
+            + f" grad-paths/s in turns ({smi})")
+    return rates
+
+
+def scan_costs(tag, vgs, scan, params, fs, dev, smi, profiled=True):
+    """(e) the device scan's busy share by CUDA events around its replays,
+    each scan's peak device memory over one call and, when ``profiled``, a
+    profiled value and gradient of each (device kernels, busy share), and
+    the device scan's graphs, capture seconds and pool bytes."""
+    import torch
+
+    scan.replay_events = []
+    try:
+        _, wall = timed(lambda: vgs["device"](params, fs), dev)
+        busy = sum(a.elapsed_time(b) for a, b in scan.replay_events)
+        replays = len(scan.replay_events)
+    finally:
+        scan.replay_events = None
+    log(f"(e) {tag}, device scan: busy in its {replays} replays {busy:.1f} of "
+        f"{wall:.1f} ms ({100 * busy / wall:.0f} %, CUDA events) ({smi})")
+    for name in ("host", "device"):
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        vgs[name](params, fs)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        log(f"(e) {tag}, {name} scan: peak {peak:,} bytes with {held:,} held "
+            f"before ({smi})")
+        if profiled:
+            n_dev, busy, wall_ms, _ = profile_sample(
+                lambda f, _s, name=name: vgs[name](params, f), fs)
+            log(f"(e) {tag}, {name} scan: profiled value and gradient {n_dev} "
+                f"device kernels, busy {busy:.1f} of {wall_ms:.1f} ms "
+                f"({100 * busy / wall_ms:.0f} %) ({smi})")
+    pool = scan.pool_bytes()
+    log(f"(e) {tag}, device scan: {scan.captures} graphs captured in "
+        f"{scan.capture_seconds:.3f} s, pool "
+        f"{'not measured' if pool is None else f'{pool:,} bytes'}")
+
+
+def scan_entry_points(fs, static, cfg, dev, small):
+    """(f) the loss functions that are not the chunked value and gradient,
+    each through the host scan and through the device scan
+    (``inverse.takes_device_scan`` answering no, then yes, which on the
+    card is its own answer): ``render_grad`` (one sample pass
+    of ``make_loss_fn``, whose geometry set packs its tiles inside each
+    step) at ``small`` for DIFF_FIELDS and ``tri_a``, and
+    ``make_batch_loss_fn`` over two sample groups (both forwards before one
+    backward, so the first group's steps run forward again before their
+    backward): the loss bit-equal, each gradient within ROUTE_REL_L2."""
+    import torch
+
+    from ptx_torch import render as R
+    from ptx_torch.diff import graphs, inverse
+
+    take = inverse.takes_device_scan
+    rerun = graphs.DeviceScan._recompute
+    reruns = []
+
+    def counted_rerun(self, ctx):
+        reruns.append(ctx.gen)
+        return rerun(self, ctx)
+
+    def both(tag, fn):
+        out = {}
+        for name in ("host", "device"):
+            inverse.takes_device_scan = (
+                lambda *a, on=name == "device", **k: on)
+            try:
+                out[name] = fn()
+            finally:
+                inverse.takes_device_scan = take
+        (v_h, g_h), (v_d, g_d) = out["host"], out["device"]
+        errs = {f: rel_l2(g_d[f], g_h[f]) for f in g_h}
+        log(f"(f) {tag}: loss {float(v_d):.9g} device scan, {float(v_h):.9g} "
+            "host scan; gradients relative L2 "
+            + ", ".join(f"{f} {e:.3g}" for f, e in errs.items()))
+        if not torch.equal(v_d, v_h) or max(errs.values()) > ROUTE_REL_L2:
+            raise AssertionError(f"(f) {tag}: the device scan disagrees")
+
+    c_s = grad_config(small)
+    t_s = grad_target(c_s, dev)
+    for fields in (DIFF_FIELDS, ("tri_a",)):
+        both(f"render_grad {','.join(fields)} {c_s.width}x{c_s.height}",
+             lambda: inverse.render_grad(fs, static, c_s, t_s, fields))
+    target = grad_target(cfg, dev)
+
+    def batch_loss():
+        loss = inverse.make_batch_loss_fn(static, cfg, target, cfg.samples,
+                                          param_fields=DIFF_FIELDS)
+        leaves = {f: getattr(fs, f).detach().requires_grad_()
+                  for f in DIFF_FIELDS}
+        v = loss(leaves, fs)
+        return v, dict(zip(leaves, torch.autograd.grad(
+            v, list(leaves.values()))))
+
+    cap = R.MAX_RAYS_PER_LAUNCH
+    R.MAX_RAYS_PER_LAUNCH = cfg.width * cfg.height * cfg.samples // 2
+    graphs.DeviceScan._recompute = counted_rerun
+    try:
+        both(f"make_batch_loss_fn, two sample groups of {cfg.samples // 2}",
+             batch_loss)
+    finally:
+        R.MAX_RAYS_PER_LAUNCH = cap
+        graphs.DeviceScan._recompute = rerun
+    if not reruns:
+        raise AssertionError("(f) the first group's backward did not run its "
+                             "forward again")
+    log(f"(f) the device scan ran {len(reruns)} forward(s) again before "
+        "their backward")
+
+
+def check_device_scan(dev, smi, scene=None, shape=None, frame=SCAN_FRAME,
+                      turns=SCAN_TURNS, small=DIFF_SMALL):
+    """Phase 14: the device scan (``ptx_torch.diff.graphs.DeviceScan``)
+    against the host scan on ``scene`` at ``shape`` (default: the backward
+    rows'): (a) no sync in an eager step, forward and backward; (b) the
+    loss bit-equal and the gradients within ROUTE_REL_L2, for DIFF_FIELDS
+    and ``tri_a`` (moved vertices, then the scene's: the tiles repacked per
+    call read in place), and on the translucent cell; (c) launches per
+    launch; (d) grad-paths/s in turns at ``shape`` and at ``frame``; (e)
+    busy share, peak memory, graphs, capture seconds, pool bytes; (f)
+    ``render_grad`` at ``small`` and ``make_batch_loss_fn`` over two
+    sample groups (:func:`scan_entry_points`)."""
+    from ptx_torch import bench
+    from ptx_torch import render as R
+    from ptx_torch.diff import inverse
+
+    cuda = dev.type == "cuda"
+    cfg = grad_config(shape or bench.BACKWARD_SHAPE)
+    cfg_f = grad_config(frame)
+    fs_np, static_np = R.load_scene(scene or bench.BACKWARD_SCENE)
+    fs, static = R.ensure_accel(fs_np, static_np, cfg, device=dev)
+    rates = {}
+    for name, fields in SCAN_SETS:
+        params = {f: getattr(fs, f) for f in fields}
+        host, scan = scan_pair(static, cfg, fields, dev)
+        if cuda:
+            eager_scan_step(name, scan, fs, params, cfg, dev)
+        vgs = scan_vgs(host, scan, cfg, grad_target(cfg, dev), fields)
+        if fields == ("tri_a",):
+            moved = {"tri_a": inverse._DEMO_INITS["tri_a"][0](fs)}
+            hold_scan(f"{name}, vertices moved", vgs, scan, moved, fs)
+        hold_scan(name, vgs, scan, params, fs)
+        if fields == DIFF_FIELDS:
+            scan_launches(name, host, scan, fs, params, cfg, dev)
+        tag = f"{name} {cfg.width}x{cfg.height} {cfg.samples} spp"
+        rates[tag] = scan_turns(tag, vgs, params, fs, cfg, dev, smi, turns)
+        if cuda:
+            scan_costs(tag, vgs, scan, params, fs, dev, smi)
+        del host, scan, vgs
+        host, scan = scan_pair(static, cfg_f, fields, dev)
+        vgs = scan_vgs(host, scan, cfg_f, grad_target(cfg_f, dev), fields)
+        hold_scan(f"{name} {cfg_f.width}x{cfg_f.height}", vgs, scan, params,
+                  fs)
+        tag = f"{name} {cfg_f.width}x{cfg_f.height} {cfg_f.samples} spp"
+        rates[tag] = scan_turns(tag, vgs, params, fs, cfg_f, dev, smi, turns)
+        if cuda:
+            scan_costs(tag, vgs, scan, params, fs, dev, smi, profiled=False)
+        del host, scan, vgs
+    # The translucent cell: passthrough steps past the bounces, a scan that
+    # ends on its lagged count (the dead step).
+    fs_t, static_t = R.ensure_accel(*translucent_scene(fs_np, static_np), cfg,
+                                    device=dev)
+    params = {f: getattr(fs_t, f) for f in DIFF_FIELDS}
+    host, scan = scan_pair(static_t, cfg, DIFF_FIELDS, dev)
+    vgs = scan_vgs(host, scan, cfg, grad_target(cfg, dev), DIFF_FIELDS)
+    s = hold_scan("translucent", vgs, scan, params, fs_t)
+    if s["steps"] <= cfg.bounces or s["dead_steps"] != 1:
+        raise AssertionError(f"translucent: {s['steps']} steps, "
+                             f"{s['dead_steps']} all-dead")
+    scan_launches("translucent", host, scan, fs_t, params, cfg, dev)
+    del host, scan, vgs, fs_t
+    scan_entry_points(fs, static, cfg, dev, small)
+    return rates
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "ptx_torch")):
         print("chip_smoke.py must run from a checkout of the repository",
@@ -2999,6 +3376,10 @@ def main() -> int:
     # 13. the device loop: counts reset just before each launch's run, read
     # just after.
     check_device_loop(fs_np, static_np, cfg, dev, smi)
+
+    # 14. the device scan: counts reset just before each launch's value and
+    # gradient, read just after.
+    check_device_scan(dev, smi)
 
     if "jax" in sys.modules or "ptx" in sys.modules:
         raise AssertionError("the port imported jax or the JAX package")

@@ -36,7 +36,8 @@ against the single card's ``make_batch_value_and_grad_fn`` within
 ``chip_smoke.ROUTE_REL_L2`` (flipped pixels left out), then per rank
 grad-paths/s (the fastest of 3), scaling against the single card, the
 collective helpers' share of a step's wall and its bytes, and peak device
-memory.
+memory.  A dp rank runs the device scan on a card, a tp rank the host scan
+(``run_train_layout`` raises otherwise); each line names the scan.
 """
 
 from __future__ import annotations
@@ -106,7 +107,8 @@ def backward(scene, shape, dev, world, rank, cards, log):
         loss_err, errs, n_flips = smoke.compare_train_step(
             name, every, fs1, static1, cfg, dev, target, single_image)
         fastest = [min(r["walls"]) for r in every]
-        row = dict(layout=name, loss_rel=loss_err, grad_rel_l2=errs,
+        row = dict(layout=name, scan=[r["scan"] for r in every],
+                   loss_rel=loss_err, grad_rel_l2=errs,
                    flipped_pixels=n_flips,
                    grad_paths_per_s=[paths / w for w in fastest],
                    speedup=one / max(fastest),
@@ -115,7 +117,8 @@ def backward(scene, shape, dev, world, rank, cards, log):
                    bytes_per_step=[r["bytes_per_step"] for r in every],
                    peak_bytes=[r["peak_bytes"] for r in every])
         rows.append(row)
-        log(f"{name}: grad-paths/s per rank "
+        log(f"{name} ({', '.join(sorted(set(row['scan'])))} scan): "
+            "grad-paths/s per rank "
             f"{', '.join(f'{g:,.0f}' for g in row['grad_paths_per_s'])} "
             f"({row['speedup']:.2f}x one card); loss {loss_err:.3g}, "
             f"gradients relative L2 {max(errs.values()):.3g} ({n_flips} "

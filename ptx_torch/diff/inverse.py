@@ -10,7 +10,8 @@ algebra differentiable.  The RNG is counter-based and keyed by absolute
 function of the parameters, and finite differences check the gradients.
 
 Every parameter set takes the general differentiable scan
-(``make_integrator(differentiable=True)``): the sweeps run without
+(``make_integrator(differentiable=True)``; on a CUDA device its device
+program, ``ptx_torch.diff.graphs.DeviceScan``): the sweeps run without
 autograd, so for material, light and texture fields its backward runs
 through the shade stage alone, and for a geometry field (``tri_a``,
 ``tri_e1``, ``tri_e2``) also through the Moller-Trumbore epilogue of each
@@ -32,7 +33,6 @@ from __future__ import annotations
 from typing import Dict, Optional, Sequence
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from ptx_torch.config import RenderConfig
 from ptx_torch.integrator.wavefront import make_integrator
@@ -131,12 +131,58 @@ def diff_backend(static, cfg, closest, any_hit, param_fields, device):
     return closest, any_hit
 
 
+def scan_fields(param_fields: Sequence[str]):
+    """``(grad_fields, copy_fields)`` of the device scan for
+    ``param_fields``: the scene fields a call may hand it anew.  The
+    parameters and the packed rows :func:`inject_params` overlays with them
+    carry the gradient; a geometry set's tiles, repacked per call by
+    :func:`slice_value_and_grad_fn`, are copied without one."""
+    grad, copy = list(param_fields), []
+    if set(param_fields) & set(_MAT_PACKED_COLS):
+        grad.append("mat_packed")
+    if set(param_fields) & set(_GEOM_ATTR_COLS):
+        grad.append("tri_attrs")
+        copy += ["ptiles", "pboxes"]
+    return tuple(grad), tuple(copy)
+
+
+def takes_device_scan(device, live_sync=None, tex_shard=None) -> bool:
+    """The rule of :func:`make_diff_integrator`: a CUDA device whose step
+    holds no collective."""
+    return (torch.device(device).type == "cuda" and live_sync is None
+            and tex_shard is None)
+
+
+def make_diff_integrator(static, cfg, closest, any_hit, param_fields, device,
+                         live_sync=None, tex_shard=None):
+    """The general differentiable scan for ``param_fields`` on ``closest`` /
+    ``any_hit`` (:func:`diff_backend`'s pair, or the exchanges wrapped
+    around it).  On a CUDA device it is the device scan
+    (``ptx_torch.diff.graphs.DeviceScan``: CUDA graphs of each step's
+    forward and backward, the live count read one iteration late), one per
+    scene, by :func:`takes_device_scan`.  Three routes keep the host scan
+    (``make_integrator(differentiable=True)``): a step that holds
+    collectives (``live_sync`` or ``tex_shard``: tp ranks, whose exchanges
+    run through gloo or NCCL outside capture); the CPU, where the host scan
+    is the reference the tests hold the device scan to (as
+    ``chip_smoke.py`` does on the card); and the fast path's replay
+    (``ptx_torch.diff.fast``), a route of its own."""
+    if takes_device_scan(device, live_sync, tex_shard):
+        from ptx_torch.diff.graphs import DeviceScan
+
+        return DeviceScan(static, cfg, closest, any_hit,
+                          *scan_fields(param_fields))
+    return make_integrator(static, cfg, closest, any_hit, differentiable=True,
+                           live_sync=live_sync, tex_shard=tex_shard)
+
+
 def _resolve_diff_integrator(static, cfg, closest, any_hit, param_fields,
                              device):
-    """The general differentiable scan on :func:`diff_backend`."""
-    return make_integrator(static, cfg, *diff_backend(
-        static, cfg, closest, any_hit, param_fields, device),
-        differentiable=True)
+    """The general differentiable scan on :func:`diff_backend`
+    (:func:`make_diff_integrator`)."""
+    return make_diff_integrator(static, cfg, *diff_backend(
+        static, cfg, closest, any_hit, param_fields, device), param_fields,
+        device)
 
 
 def _backend(static, cfg, device, closest, any_hit):
@@ -241,8 +287,9 @@ def make_batch_value_and_grad_fn(static: SceneStatic, cfg: RenderConfig,
     forward and backward run one chunk after the other, so the residual
     memory is one chunk's.  MSE is additive over pixels, so the chunks'
     gradients sum exactly; the per-pixel mean over samples stays inside a
-    chunk, and sample groups past the launch cap are checkpointed
-    (recomputed in backward) rather than saved.  Samples are fused first
+    chunk, and sample groups past the launch cap run forward twice (once
+    for the chunk's mean, without autograd, once before their own
+    backward) rather than being saved.  Samples are fused first
     (k per launch), then pixels chunked to fit ``max_chunk_rays``
     (default ``cfg.rays_per_batch`` or MAX_RAYS_PER_LAUNCH).
 
@@ -282,25 +329,43 @@ def slice_value_and_grad_fn(integrator, cfg: RenderConfig,
     n_groups = n_samples // k
     geom_params = bool(set(param_fields) & set(_GEOM_ATTR_COLS))
 
-    def chunk_loss(params, fs: FlatScene, c: int):
-        """Sum of squared errors over pixel chunk ``c``."""
-        fsx = inject_params(fs, params, keep_tiles=True)
+    def chunk_value_and_grad(leaves, fs: FlatScene, c: int):
+        """Sum of squared errors over pixel chunk ``c`` and its gradients.
+        Past the launch cap, the chunk's sum over every sample group runs
+        first without autograd; then each group's forward and backward in
+        turn, with its share of the cotangent: one group's residuals live
+        at a time, and a forward is followed by its own backward (the
+        device scan's graphs hold one forward's residuals per step)."""
+        fsx = inject_params(fs, leaves, keep_tiles=True)
         lo = first + c * cp
-        pix = lo + torch.arange(cp, dtype=torch.int32, device=device)
-        pixel_ids = pix.repeat(k)
+        pixel_ids = (lo + torch.arange(cp, dtype=torch.int32,
+                                       device=device)).repeat(k)
+        wrt = list(leaves.values())
 
         def one_group(g):
             radiance, _ = integrator(fsx, pixel_ids, _sample_ids(g, k, cp, device))
             return radiance.reshape(k, cp, 3).sum(0)
 
+        def sse(total):
+            return torch.sum((total / n_samples - target[lo:lo + cp]) ** 2)
+
         if n_groups == 1:
+            v = sse(one_group(0))
+            return v.detach(), torch.autograd.grad(v, wrt, allow_unused=True)
+        with torch.no_grad():
             total = one_group(0)
-        else:
-            total = torch.zeros((cp, 3), device=device)
-            for g in range(n_groups):
-                total = total + checkpoint(one_group, g, use_reentrant=False)
-        radiance = total / n_samples
-        return torch.sum((radiance - target[lo:lo + cp]) ** 2)
+            for g in range(1, n_groups):
+                total = total + one_group(g)
+        total.requires_grad_(True)
+        v = sse(total)
+        cot, = torch.autograd.grad(v, total)
+        grads = [None] * len(wrt)
+        for g in range(n_groups):
+            part = torch.autograd.grad(one_group(g), wrt, cot,
+                                       allow_unused=True)
+            grads = [b if a is None else a if b is None else a + b
+                     for a, b in zip(grads, part)]
+        return v.detach(), grads
 
     denom = float(n_pixels * 3)  # the mean over the [P, 3] image
 
@@ -315,9 +380,8 @@ def slice_value_and_grad_fn(integrator, cfg: RenderConfig,
         leaves = {k_: v.detach().requires_grad_(True) for k_, v in params.items()}
         tot, grads = 0.0, [0.0] * len(leaves)
         for c in range(n_chunks):
-            v = chunk_loss(leaves, fs, c)
-            g = torch.autograd.grad(v, list(leaves.values()), allow_unused=True)
-            tot = tot + v.detach()
+            v, g = chunk_value_and_grad(leaves, fs, c)
+            tot = tot + v
             grads = [a if b is None else a + b for a, b in zip(grads, g)]
         return tot / denom, {
             k_: (torch.zeros_like(x) if isinstance(g, float) else g) / denom

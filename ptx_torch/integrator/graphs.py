@@ -57,6 +57,83 @@ from ptx_torch.kernels import _build, shade_cuda, sorting
 from ptx_torch.scene.flatten import FlatScene, SceneStatic
 
 
+class GraphRunner:
+    """The CUDA graphs of a device program (:class:`DeviceLoop`, and
+    ``ptx_torch.diff.graphs.DeviceScan``): captured into one memory pool on
+    a stream of their own, each with the kernel launches its capture
+    counted, and replayed.
+
+    Read by ``chip_smoke.py``: ``captures`` and ``capture_seconds`` (graphs
+    captured so far, host seconds spent capturing them),
+    :meth:`pool_bytes`, and ``replay_events``: set it to a list and each
+    replay appends its (start, end) CUDA events."""
+
+    def __init__(self):
+        self._pool = None
+        self._stream = None
+        self.captures = 0
+        self.capture_seconds = 0.0
+        self.replay_events: Optional[List[Tuple]] = None
+
+    def _graph(self, fn):
+        """``(graph, tally, fn())``: ``fn``'s work captured into a CUDA
+        graph in the pool on the runner's stream, and the launches the
+        wrappers counted meanwhile (taken back out of ``_build.LAUNCHES``:
+        a capture launches nothing).  Raises if the capture fails."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream()
+        before = dict(_build.LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.stream(self._stream):
+                graph.capture_begin(self._pool)
+                try:
+                    result = fn()
+                finally:
+                    graph.capture_end()
+        finally:
+            tally = {k: n - before[k] for k, n in _build.LAUNCHES.items()
+                     if n != before[k]}
+            _build.LAUNCHES.update(before)
+        self.captures += 1
+        self.capture_seconds += time.perf_counter() - t0
+        return graph, tally, result
+
+    def _replay(self, graph, tally):
+        """Replay ``graph`` and count its capture's launches."""
+        if self.replay_events is None:
+            graph.replay()
+        else:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            end.record()
+            self.replay_events.append((start, end))
+        _build.add_launches(tally)
+
+    def pool_bytes(self) -> Optional[int]:
+        """Device bytes the graphs' memory pool holds (the caching
+        allocator's segments of that pool); None before the first
+        capture."""
+        if self._pool is None:
+            return None
+        pool = tuple(self._pool)
+        return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+                   if tuple(s.get("segment_pool_id", ())) == pool)
+
+
+def read_count(launch, i: int) -> int:
+    """``c_i`` of a launch whose live counts are copied into (pinned) host
+    memory ``launch.host`` and recorded on ``launch.events``, once its copy
+    has landed (an event wait, not a sync)."""
+    if launch.cuda:
+        launch.events[i].synchronize()
+    return int(launch.host[i])
+
+
 class _Launch:
     """The wavefront buffers, live counts and graphs of one launch shape."""
 
@@ -85,30 +162,22 @@ class _Launch:
                    for x in (*self.state, self.slot, self.lanes))
 
 
-class DeviceLoop:
+class DeviceLoop(GraphRunner):
     """The fused integrator ``(fs, pixel_ids, sample_ids) -> (radiance
     [R, 3], alpha [R])`` of one scene on the device loop (module
     docstring).  ``step`` is ``shade_cuda.make_pallas_step``'s bounce.
-
-    Read by ``chip_smoke.py``: ``captures`` and ``capture_seconds`` (graphs
-    captured so far, host seconds spent capturing them), :meth:`pool_bytes`,
-    :meth:`schedule` (the last call's counts against the host loop's) and
-    ``replay_events``: set it to a list and each replay appends its (start,
-    end) CUDA events."""
+    Read by ``chip_smoke.py`` as a :class:`GraphRunner`, and its
+    :meth:`schedule` (the last call's counts against the host loop's)."""
 
     def __init__(self, static: SceneStatic, cfg: RenderConfig, step):
+        super().__init__()
         self.static, self.cfg, self.step = static, cfg, step
         self.max_iters = max_iterations(static, cfg)
         self.compact = sorting.resolve_compact(static, cfg)
         self._scene = None  # (fs, its tensors' (pointer, shape)) it serves
         self._sun = None
         self._launches = {}
-        self._pool = None
-        self._stream = None
         self._last = None
-        self.captures = 0
-        self.capture_seconds = 0.0
-        self.replay_events: Optional[List[Tuple]] = None
 
     def __call__(self, fs: FlatScene, pixel_ids, sample_ids):
         r = pixel_ids.shape[0]
@@ -166,7 +235,7 @@ class DeviceLoop:
         for it in range(self.max_iters):
             if it > 0:
                 if it > 1:
-                    counts.append(self._read(launch, it - 1))
+                    counts.append(read_count(launch, it - 1))
                 if counts[it - 1] == 0:
                     break
                 in_c0 = in_c0 or counts[it - 1] <= skip
@@ -192,13 +261,6 @@ class DeviceLoop:
         alpha[launch.slot] = state.alpha
         return radiance, alpha
 
-    @staticmethod
-    def _read(launch: _Launch, i: int) -> int:
-        """c_i, once its copy has landed (an event wait, not a sync)."""
-        if launch.cuda:
-            launch.events[i].synchronize()
-        return int(launch.host[i])
-
     def _sort(self, launch: _Launch):
         state, slot = wavefront.sort_wavefront(launch.state, launch.slot,
                                                self.static)
@@ -220,54 +282,8 @@ class DeviceLoop:
             return
         entry = launch.graphs.get(key)
         if entry is None:
-            entry = launch.graphs[key] = self._capture(fn)
-        graph, tally = entry
-        if self.replay_events is None:
-            graph.replay()
-        else:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            graph.replay()
-            end.record()
-            self.replay_events.append((start, end))
-        _build.add_launches(tally)
-
-    def _capture(self, fn):
-        """``(graph, tally)``: ``fn``'s work captured into a CUDA graph in
-        the loop's pool on its own stream, and the launches the wrappers
-        counted meanwhile (taken back out of ``_build.LAUNCHES``: a capture
-        launches nothing).  Raises if the capture fails."""
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-            self._stream = torch.cuda.Stream()
-        before = dict(_build.LAUNCHES)
-        graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        try:
-            with torch.cuda.stream(self._stream):
-                graph.capture_begin(self._pool)
-                try:
-                    fn()
-                finally:
-                    graph.capture_end()
-        finally:
-            tally = {k: n - before[k] for k, n in _build.LAUNCHES.items()
-                     if n != before[k]}
-            _build.LAUNCHES.update(before)
-        self.captures += 1
-        self.capture_seconds += time.perf_counter() - t0
-        return graph, tally
-
-    def pool_bytes(self) -> Optional[int]:
-        """Device bytes the graphs' memory pool holds (the caching
-        allocator's segments of that pool); None before the first
-        capture."""
-        if self._pool is None:
-            return None
-        pool = tuple(self._pool)
-        return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
-                   if tuple(s.get("segment_pool_id", ())) == pool)
+            entry = launch.graphs[key] = self._graph(fn)[:2]
+        self._replay(*entry)
 
     def buffer_bytes(self) -> int:
         """Device bytes of the static wavefront buffers, all shapes."""
@@ -283,7 +299,7 @@ class DeviceLoop:
         launch, counts, steps, sorts = self._last
         counts = list(counts)
         for i in range(len(counts), len(steps) + 1):
-            counts.append(self._read(launch, i))
+            counts.append(read_count(launch, i))
         host = []
         for c in counts[:self.max_iters]:
             if c == 0:

@@ -9,7 +9,8 @@ sample, bounce, purpose), so lane order never changes a sample.  With
 survivor compaction (:func:`_chunked_forward`) the loop sorts the wavefront
 dead-last each iteration and steps only the live CHUNK-lane chunks; each
 live count read (``.item()``) is one device sync.  The fused integrator
-runs that schedule as a device program (``ptx_torch.integrator.graphs``).
+runs that schedule as a device program (``ptx_torch.integrator.graphs``),
+and the differentiable scan has one too (``ptx_torch.diff.graphs``).
 
 Sampled directions and the lobe probability are detached (the JAX
 package's ``stop_gradient``: detached sampling), so the radiance is
@@ -447,6 +448,19 @@ def run_forward(step: Callable, fs: FlatScene, state: RayState,
     return state.radiance, state.alpha
 
 
+def make_step(static: SceneStatic, cfg: RenderConfig, closest: Callable,
+              any_hit: Callable, tex_shard=None):
+    """The plain bounce step ``(fs, it, state) -> state``: the trace stage,
+    then the shade stage."""
+    trace = make_trace_fn(static, cfg, closest, any_hit)
+    shade = make_shade_fn(static, cfg, tex_shard)
+
+    def step(fs: FlatScene, it: int, state: RayState) -> RayState:
+        return shade(fs, it, state, *trace(fs, it, state))
+
+    return step
+
+
 def make_integrator(static: SceneStatic, cfg: RenderConfig, closest: Callable,
                     any_hit: Callable, differentiable: bool = False,
                     live_sync: Callable = None, tex_shard=None):
@@ -462,18 +476,16 @@ def make_integrator(static: SceneStatic, cfg: RenderConfig, closest: Callable,
     exact because a step is the identity on dead lanes.  Autograd saves
     what the shade stage's backward needs; the sweeps run without it, so
     the trace adds to the graph only what depends on a parameter (the
-    epilogue's gather and Moller-Trumbore recompute, for vertices).
+    epilogue's gather and Moller-Trumbore recompute, for vertices).  This
+    is the host scan; on a CUDA device the loss functions run its schedule
+    as a device program (``ptx_torch.diff.graphs.DeviceScan``).
 
     Multi-rank runs (``ptx_torch.parallel.dist``) pass ``live_sync`` (see
     :func:`count_live`) when the backend holds collectives, and
     ``tex_shard`` (``textures.TexShard``) for a scene-sharded texel pack."""
     max_iters = max_iterations(static, cfg)
     do_compact = sorting.resolve_compact(static, cfg)
-    trace = make_trace_fn(static, cfg, closest, any_hit, do_compact)
-    shade = make_shade_fn(static, cfg, tex_shard)
-
-    def step(fs: FlatScene, it: int, state: RayState) -> RayState:
-        return shade(fs, it, state, *trace(fs, it, state))
+    step = make_step(static, cfg, closest, any_hit, tex_shard)
 
     def integrate(fs: FlatScene, pixel_ids, sample_ids):
         state = initial_state(fs, cfg, pixel_ids, sample_ids)

@@ -453,21 +453,24 @@ def make_distributed_sample_fn(
 
 def diff_integrator(static: SceneStatic, cfg: RenderConfig, mesh,
                     plan: pmesh.Plan, comm: str, param_fields, device="cuda"):
-    """This rank's general differentiable scan (``make_integrator(...,
-    differentiable=True)``) on ``diff.inverse.diff_backend`` with the
-    exchanges of :func:`make_distributed_sample_fn` and ``live_sync``
-    around it."""
+    """This rank's general differentiable scan
+    (``diff.inverse.make_diff_integrator``) on ``diff.inverse.diff_backend``
+    with the exchanges of :func:`make_distributed_sample_fn` and
+    ``live_sync`` around it: on a CUDA rank whose scene is not sharded (dp)
+    the device scan, on a tp rank the host scan (its exchanges and
+    ``live_sync`` are collectives, issued outside capture)."""
     from ptx_torch import render as R
     from ptx_torch.diff import inverse
-    from ptx_torch.integrator.wavefront import make_integrator
 
     _check_layout(static, plan, comm)
     closest, any_hit = inverse.diff_backend(
         static, cfg, *R.get_backend(static, cfg, device), param_fields, device)
     closest, any_hit, live_sync, tex_shard = _exchanges(
         static, mesh, plan, comm, closest, any_hit)
-    return make_integrator(static, cfg, closest, any_hit, differentiable=True,
-                           live_sync=live_sync, tex_shard=tex_shard)
+    return inverse.make_diff_integrator(static, cfg, closest, any_hit,
+                                        param_fields, device,
+                                        live_sync=live_sync,
+                                        tex_shard=tex_shard)
 
 
 def make_distributed_value_and_grad_fn(
@@ -490,8 +493,8 @@ def make_distributed_value_and_grad_fn(
     Each rank runs the one-device body on its slice
     (:func:`pixel_range`, cut into chunks and sample groups as one device
     cuts the frame) through :func:`diff_integrator`, whose ``live_sync``
-    makes every rank step the scan, and a checkpointed group's recompute
-    in backward, in the same order.  The slices' losses and
+    makes every rank step the scan, and each sample group's two forwards
+    and its backward, in the same order.  The slices' losses and
     gradients are summed over the world in one :func:`all_reduce`; in
     reduce mode the tp ranks of a row trace the same pixels, so the sum is
     divided by tp (``ptx``'s shard_map transpose does the same to a

@@ -88,8 +88,9 @@ def _cases():
         ("grad_dp2_tp2_reduce_brute", 4, 2, 2, "reduce", "brute", {}),
         ("grad_dp2_tri_a_brute", 2, 2, 1, "reduce", "brute",
          dict(params=("tri_a",), scene=LIT_SCENE)),
-        # One sample per launch and one pixel per chunk: two checkpointed
-        # sample groups, recomputed (with their exchanges) in backward.
+        # One sample per launch and one pixel per chunk: two sample groups,
+        # each run forward (with its exchanges) for the mean and again
+        # before its own backward.
         ("grad_groups_dp1_tp2_reduce", 2, 1, 2, "reduce", "brute",
          dict(samples=2, width=4, height=4, max_chunk_rays=1)),
         ("grad_refuse_tri_a_tp2", 2, 1, 2, "reduce", "brute",

@@ -86,6 +86,26 @@ def jax_reference(scenes):
 @pytest.mark.parametrize("fields", [MATERIAL_FIELDS, ("tri_a",)],
                          ids=["materials", "tri_a"])
 def test_value_and_grad_match_jax(fields, scenes, jax_reference):
+    _check_value_and_grad_against_jax(fields, scenes, jax_reference)
+
+
+def test_value_and_grad_match_jax_through_the_device_scan(
+        scenes, jax_reference, monkeypatch):
+    """The material case on the device scan (``diff.graphs.DeviceScan``,
+    the card's route; on the CPU without capture), same tolerances."""
+    from ptx_torch.diff import graphs
+
+    monkeypatch.setattr(inverse, "takes_device_scan", lambda *a, **k: True)
+    made = []
+    init = graphs.DeviceScan.__init__
+    monkeypatch.setattr(graphs.DeviceScan, "__init__",
+                        lambda self, *a, **k: (made.append(self),
+                                               init(self, *a, **k))[1])
+    _check_value_and_grad_against_jax(MATERIAL_FIELDS, scenes, jax_reference)
+    assert len(made) == 1 and made[0].schedule()["steps"] > 0
+
+
+def _check_value_and_grad_against_jax(fields, scenes, jax_reference):
     jfs, jstatic, fs, static = scenes
     target, jcolor, ref = jax_reference
     cfg = port_config(JCFG)

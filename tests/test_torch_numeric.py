@@ -68,7 +68,7 @@ assert multirank_check.layouts(4) == [(4, 1, "reduce"), (2, 2, "reduce"),
                                       (1, 4, "ring")]
 
 from ptx_torch import bench, render as R
-import ptx_torch.diff.fast, ptx_torch.diff.inverse
+import ptx_torch.diff.fast, ptx_torch.diff.graphs, ptx_torch.diff.inverse
 from ptx_torch.parallel import dist
 assert {"ptx_torch.parallel." + m for m in
         ("mesh", "multihost", "partition", "shard_scene", "dist")} <= set(sys.modules)
