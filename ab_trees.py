@@ -28,10 +28,14 @@ its kernels in DIR and, on ``arch:300000``:
   differ from ``_small_sweep`` (t, tri, hit; reported, not raised, so an
   earlier tree's count shows), timed as the sweeps are;
   (``--loop-only`` skips the two items above);
-* unless ``--sweeps-only``: runs the sample loop (256x256, 4 spp, 4
-  bounces) with shader "xla" and "auto" in turns after a warm-up sample of
-  each (paths/s of each pass), and profiles one sample of each shader
-  (device kernels, device busy ms, wall ms).
+* unless ``--sweeps-only``: runs the sample loop (``render.
+  progressive_render`` over ``render.make_sample_fn``; 256x256, 4 spp, 4
+  bounces, the default fused shader) on the tile traversal and on the bvh
+  path in turns after a whole loop of each (paths/s of each turn), then
+  one loop of each under ``chip_smoke.replay_split`` (the share of the
+  wall in graph replays, and the idle time at launch edges and between
+  iterations) and one profiled sample of each (device kernels, device busy
+  ms, wall ms).
 
 The card's ``nvidia-smi`` name and power limit head the output; the last
 line is one JSON object with every process's numbers (also ``--out``).
@@ -53,6 +57,10 @@ SCENE = "arch:300000"
 SMALL_SCENE = "synthetic:2000"
 KERNELS = ("closest", "closest_stats", "any")
 SMALL_KERNELS = ("closest_small", "any_small")
+# The sample loop's cells (the smoke cell's config with these fields) and
+# the order of their timed turns.
+LOOP_CELLS = (("tile", {}), ("bvh", {"intersector": "bvh"}))
+LOOP_TURNS = ("tile", "bvh", "bvh", "tile", "tile", "bvh")
 
 
 def _smoke():
@@ -239,35 +247,50 @@ def sweep_report(S, fs, sets, device, timed: bool = True) -> dict:
     return out
 
 
-def loop_report(S, fs, static, cfg, device, passes=("xla", "auto", "auto", "xla")):
-    """The sample loop with each shader in ``passes`` (a warm-up sample of
-    each first): paths/s per pass; then one profiled sample per shader."""
+def loop_report(S, fs_np, static_np, cfg, device, turns=LOOP_TURNS):
+    """The sample loop of each cell of LOOP_CELLS (a whole loop of each
+    first, to capture its graphs) in ``turns``: paths/s per turn; then per
+    cell one loop under ``chip_smoke.replay_split`` (the busy share of the
+    wall in graph replays, the idle time at launch edges and between
+    iterations) and one profiled sample of the production loop (device
+    kernels, device busy ms, wall ms)."""
     import torch
 
     from ptx_torch import render as R
 
     paths = cfg.width * cfg.height * cfg.samples
-    fns = {}
-    for shader in dict.fromkeys(passes):
-        c = dataclasses.replace(cfg, shader=shader)
-        fns[shader] = (c, R.make_sample_fn(static, c, device))
-        fns[shader][1](fs, 0)
-    torch.cuda.synchronize(device)
+    cells = {}
+    for name, fields in LOOP_CELLS:
+        c = dataclasses.replace(cfg, **fields)
+        fs, static = R.ensure_accel(fs_np, static_np, c, device=device)
+        cells[name] = (c, fs, static, R.make_sample_fn(static, c, device))
+
+    def run(name, samples=None):
+        c, fs, static, fn = cells[name]
+        if samples is not None:
+            c = dataclasses.replace(c, samples=samples)
+        return R.progressive_render(fs, static, c, fn, None, 1, device)
+
+    for name in cells:
+        run(name)
     loop = []
-    for shader in passes:
-        c, fn = fns[shader]
+    for name in turns:
         torch.cuda.synchronize(device)
         t0 = time.perf_counter()
-        R.progressive_render(fs, static, c, fn, None, 1, device)
+        run(name)
         torch.cuda.synchronize(device)
-        loop.append({"shader": shader, "paths_per_s": paths / (time.perf_counter() - t0)})
+        loop.append({"cell": name,
+                     "paths_per_s": paths / (time.perf_counter() - t0)})
+    splits = {name: S.replay_split(lambda name=name: run(name))
+              for name in cells}
     profiles = {}
-    for shader, (c, fn) in fns.items():
-        n_dev, busy, wall_ms, top = S.profile_sample(fn, fs)
-        profiles[shader] = {"device_kernels": n_dev, "busy_ms": busy,
-                            "wall_ms": wall_ms,
-                            "top": [[name[:80], ms, n] for name, (ms, n) in top[:3]]}
-    return {"loop": loop, "profile": profiles}
+    for name in cells:
+        n_dev, busy, wall_ms, top = S.profile_sample(
+            lambda fs, s, name=name: run(name, samples=1), cells[name][1])
+        profiles[name] = {"device_kernels": n_dev, "busy_ms": busy,
+                          "wall_ms": wall_ms,
+                          "top": [[k[:80], ms, n] for k, (ms, n) in top[:3]]}
+    return {"loop": loop, "split": splits, "profile": profiles}
 
 
 def worker(root: str, sweeps_only: bool, loop_only: bool = False) -> dict:
@@ -299,7 +322,7 @@ def worker(root: str, sweeps_only: bool, loop_only: bool = False) -> dict:
         rec["small"] = small_report(
             S, fs_s, small_sets(S, fs_s, static_s, dev, *sizes), dev)
     if not sweeps_only:
-        rec.update(loop_report(S, fs, static, cfg, dev))
+        rec.update(loop_report(S, fs_np, static_np, cfg, dev))
     return rec
 
 
@@ -343,7 +366,9 @@ def summary(name, runs) -> list:
     for r in runs:
         if "loop" in r:
             lines.append("  sample loop paths/s: " + ", ".join(
-                f"{p['shader']} {p['paths_per_s']:,.0f}" for p in r["loop"]))
+                f"{p['cell']} {p['paths_per_s']:,.0f}" for p in r["loop"]))
+            for cell, split in r["split"].items():
+                lines.append(f"  {cell} loop: {_smoke().split_line(split)}")
             lines.append("  profiled sample: " + "; ".join(
                 f"{s} {p['device_kernels']} kernels, busy {p['busy_ms']:.1f} of "
                 f"{p['wall_ms']:.1f} ms" for s, p in r["profile"].items()))

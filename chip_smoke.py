@@ -42,8 +42,8 @@ Phases (any failure raises, and the exit code is then non-zero):
    and 8,192 lanes (the record keeps the chunk's);
 5. the main path: ``ptx_torch.render.render`` on ``arch:300000`` at
    256x256, 4 spp, 4 bounces with the default config (shader "auto", the
-   fused kernels), with every kernel's launch count (one shadow-ray setup
-   per shade step); then the sample loop
+   fused kernels, the device pass of phase 15), with every kernel's launch
+   count (one shadow-ray setup per shade step); then the sample loop
    with shader "xla" and "auto" in turns (paths/s, device kernels per
    sample), and the two images against each other; then 64x64, 2 spp
    through the kernels against the plain brute-force intersector;
@@ -105,7 +105,8 @@ Phases (any failure raises, and the exit code is then non-zero):
    ``render_distributed``: each rank's launches of the plan, the sweeps,
    the shadow-ray setup and shade counted (> 0) and the plain versions
    counted (none), both ranks' images equal, each image against the main
-   path's (dp bit-equal, asserted; tp's flips counted), then each layout's
+   path's (dp bit-equal, asserted; tp's flips counted; each dp rank's
+   sample function a device pass, asserted), then each layout's
    sample loop timed in the ranks (paths/s, the share of it in the
    collective helpers on a synchronized clock, bytes handed to them per
    sample: two ranks time-sharing one H100, not a scaling figure); (c) the
@@ -171,6 +172,30 @@ Phases (any failure raises, and the exit code is then non-zero):
    packed inside each step) and ``make_batch_loss_fn`` over two sample
    groups (the first group's forward run again before its backward)
    through both scans, loss bit-equal, gradients within ROUTE_REL_L2.
+15. the device pass (``ptx_torch.integrator.graphs.DevicePass``: per
+   launch one scalar copy, a prologue graph of the ids and camera rays, the
+   device loop, an epilogue graph folding the launch into the carry in
+   place), the route of ``render.render`` in phase 5, the CLI, the bench
+   rows and phase 12's dp ranks (asserted there): (a) ``render.render``
+   against the same render on the host loop with eager edges
+   (``eager_render``), color and alpha bits and PNG bytes equal, with its
+   device-pass calls and its kernels counted (each > 0), on the smoke cell
+   (two launches per sample), the bvh path, the translucent cell,
+   ``synthetic:2000`` lit by the sun at 128x128 x 5 spp (two samples per
+   launch, the last batch ragged) and the claim blend at 128x128 x 3 spp
+   (two per launch); a resume (2 samples, then 4) against the
+   uninterrupted 4; (b) ``torch.cuda.set_sync_debug_mode("error")`` around
+   a whole sample after warm-up (the lagged counts' event waits are no
+   syncs), on the tile traversal, bvh and the batched cell; (c) a sample's
+   kernel launches equal to the same device loop's with eager edges, its
+   profiled device kernels, the loop's graphs, capture seconds and pool
+   bytes; (d) paths/s through the pass and through the same loop with
+   eager edges in 3 turns each, then one loop of each under
+   ``replay_split`` (the busy share of the wall in graph replays, the idle
+   time at launch edges and between iterations), on the tile traversal
+   and bvh; (e) the device scan: a load graph per launch shape, the loss
+   bit-equal and the gradients within ROUTE_REL_L2, grad-paths/s in 3
+   turns against the host scan.
 Every kernel's bound (the least time the card could take for the work of
 the timed launch: its operations at the float32 peak or its bytes at the
 HBM rate, whichever is larger) is computed from that launch's inputs.
@@ -1785,7 +1810,8 @@ def run_layout(fs, static, cfg, plan, comm, dev, timed=(True,), plain=None):
         out["walls"].append(time.perf_counter() - t0)
     st = pdist.STATS
     out.update(k=k, collective_s=st.seconds, collective_calls=st.calls,
-               bytes_per_sample=st.bytes / cfg.samples)
+               bytes_per_sample=st.bytes / cfg.samples,
+               route=type(fn).__name__)
     pdist.STATS.reset(timed=False)
     return out
 
@@ -1964,7 +1990,8 @@ def rank_worker(port: int, rank: int, out: str, spec: dict) -> int:
                          dev, plain=plain)
         save(name, run, wall_s=run["walls"][0], collective_s=run["collective_s"],
              collective_calls=run["collective_calls"],
-             bytes_per_sample=run["bytes_per_sample"], k=run["k"])
+             bytes_per_sample=run["bytes_per_sample"], k=run["k"],
+             route=run["route"])
 
     gcfg = grad_config(spec["grad_shape"])
     target = grad_target(gcfg, dev)
@@ -2384,10 +2411,16 @@ def check_distributed(dev, single, cfg, smi, scene=SLICE_SCENE,
                 f"(|dcolor|<={COLOR_ATOL} on {color_share:.5f}, alpha equal on "
                 f"{alpha_share:.5f}, uint8 within 1 on {image_share:.5f})")
             # Each dp rank traces whole launches of the single device's
-            # (the same pixels, samples per launch and block composition).
+            # (the same pixels, samples per launch and block composition),
+            # on the card through the device pass (a tp rank: the host loop).
             if tp == 1 and not exact:
                 raise AssertionError(f"{name}: ray-parallel image not bit-equal "
                                      "to the single device")
+            routes = {rep[name]["route"] for rep in reports}
+            log(f"  {name}: the ranks' sample pass {sorted(routes)}")
+            if tp == 1 and dev.type == "cuda" and routes != {"DevicePass"}:
+                raise AssertionError(f"{name}: the dp ranks did not take the "
+                                     f"device pass ({routes})")
             if min(color_share, alpha_share, image_share) < MIN_PIXEL_SHARE:
                 raise AssertionError(f"{name} disagrees with the single-device "
                                      "image")
@@ -2492,6 +2525,83 @@ def loop_render(integrate, fs, static, cfg, dev, outs=None):
                                1, dev)
     sync()
     return res, time.perf_counter() - t0
+
+
+def replay_split(run) -> dict:
+    """``run()`` (a sample loop on a device loop) with CUDA events around
+    every graph replay and a mark around each ``DeviceLoop._loop`` call (a
+    launch's bounce iterations), then where the device sat outside the
+    replays: ``wall_ms`` (a start event after a synchronize to an end event
+    after ``run`` returned), ``busy_ms`` (the union of the replay spans),
+    ``edge_idle_ms`` (the gaps at a launch edge: before the first replay,
+    after the last, and every gap that is not between two replays of one
+    ``_loop`` call) and ``iteration_idle_ms`` (the gaps between two replays
+    of one ``_loop`` call).  Eager kernels (a host loop's edges, the live
+    counts' sums and copies) count as idle here.  The methods patched exist
+    on every tree since the device loop's, so ``ab_trees.py`` runs this on
+    earlier commits too."""
+    import torch
+
+    from ptx_torch.integrator import graphs as G
+
+    spans, loops = [], []
+    replay, loop = G.GraphRunner._replay, G.DeviceLoop._loop
+
+    def timed_replay(self, graph, tally):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        replay(self, graph, tally)
+        end.record()
+        spans.append((start, end))
+
+    def marked_loop(self, *args, **kwargs):
+        first = len(spans)
+        try:
+            return loop(self, *args, **kwargs)
+        finally:
+            loops.append((first, len(spans)))
+
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    G.GraphRunner._replay, G.DeviceLoop._loop = timed_replay, marked_loop
+    try:
+        t0.record()
+        run()
+        t1.record()
+        t1.synchronize()
+    finally:
+        G.GraphRunner._replay, G.DeviceLoop._loop = replay, loop
+    if not spans:
+        raise AssertionError("the sample loop replayed no graph")
+    at = [(t0.elapsed_time(a), t0.elapsed_time(b)) for a, b in spans]
+    inner = set()
+    for first, stop in loops:
+        inner.update(range(first, stop - 1))  # gap i: replay i to i + 1
+    edge = at[0][0] + (t0.elapsed_time(t1) - at[-1][1])
+    iteration = 0.0
+    for i in range(len(at) - 1):
+        gap = at[i + 1][0] - at[i][1]
+        if i in inner:
+            iteration += gap
+        else:
+            edge += gap
+    return dict(wall_ms=t0.elapsed_time(t1), busy_ms=sum(b - a for a, b in at),
+                edge_idle_ms=edge, iteration_idle_ms=iteration,
+                replays=len(at), launches=len(loops))
+
+
+def split_line(split) -> str:
+    """:func:`replay_split`'s numbers as one line of text."""
+    w = split["wall_ms"]
+    return (f"busy in replays {split['busy_ms']:.3f} of {w:.3f} ms "
+            f"({100 * split['busy_ms'] / w:.1f} %); idle at launch edges "
+            f"{split['edge_idle_ms']:.3f} ms "
+            f"({100 * split['edge_idle_ms'] / w:.1f} %), between iterations "
+            f"{split['iteration_idle_ms']:.3f} ms "
+            f"({100 * split['iteration_idle_ms'] / w:.1f} %); "
+            f"{split['replays']} replays, {split['launches']} launches")
 
 
 def no_sync(tag, fn):
@@ -3135,6 +3245,253 @@ def check_device_scan(dev, smi, scene=None, shape=None, frame=SCAN_FRAME,
     return rates
 
 
+# The device pass (phase 15): the cells beside the smoke cell, the bvh path
+# and the translucent cell: synthetic:2000 lit by the smoke scene's sun at
+# 128x128 x 5 spp (two samples per 32,768-ray launch, the last batch
+# ragged), and the claim blend (a transparent background) on the smoke
+# scene at 128x128 x 3 spp (two per launch, ragged); the order of the timed
+# turns ("edges": the same device loop with eager edges, ``loop_render``).
+PASS_BATCHED = dict(width=128, height=128, samples=5, bounces=4)
+PASS_CLAIM = dict(width=128, height=128, samples=3, bounces=4,
+                  transparent_background=True)
+PASS_TURNS = ("edges", "pass", "pass", "edges", "edges", "pass")
+
+
+def counted_passes(fn):
+    """``(fn(), calls of DevicePass.accumulate meanwhile)``."""
+    from ptx_torch.integrator import graphs as G
+
+    calls = []
+    accumulate = G.DevicePass.accumulate
+
+    def counted(self, *args, **kwargs):
+        calls.append(1)
+        return accumulate(self, *args, **kwargs)
+
+    G.DevicePass.accumulate = counted
+    try:
+        return fn(), len(calls)
+    finally:
+        G.DevicePass.accumulate = accumulate
+
+
+def png_bytes(res, tmp, name) -> bytes:
+    from ptx_torch.io.png import write_png
+
+    path = os.path.join(tmp, f"{name}.png")
+    write_png(path, res.image)
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def results_bit_equal(tag, got, want, tmp):
+    """Raise unless two RenderResults' color and alpha bits and PNG bytes
+    are equal."""
+    import numpy as np
+
+    for field in ("color", "alpha"):
+        a = getattr(got, field).view(np.uint32)
+        b = getattr(want, field).view(np.uint32)
+        if not np.array_equal(a, b):
+            raise AssertionError(f"{tag}: {field} differs in "
+                                 f"{int((a != b).sum())} values")
+    if png_bytes(got, tmp, f"{tag}_got") != png_bytes(want, tmp, f"{tag}_want"):
+        raise AssertionError(f"{tag}: the PNG bytes differ")
+
+
+def eager_render(fs_np, static_np, cfg, dev):
+    """``render.render`` with the fused step on the host loop and the eager
+    edges (ids, ``cat``, the plain folds), one or more samples per
+    launch."""
+    from ptx_torch import render as R
+    from ptx_torch.kernels import shade_cuda as S
+
+    def host_loop(static, cfg, device):
+        closest, any_hit = R.get_backend(static, cfg, device, sort=False)
+        return S._eager_integrator(
+            static, cfg, S.make_pallas_step(static, cfg, closest, any_hit))
+
+    make = R.make_integrator_for
+    R.make_integrator_for = host_loop
+    try:
+        return R.render(fs_np, static_np, cfg, device=dev)
+    finally:
+        R.make_integrator_for = make
+
+
+def hold_pass(tag, fs_np, static_np, cfg, dev, tmp, kernels=()):
+    """(a) ``render.render`` (the device pass, asserted by its calls) against
+    :func:`eager_render` (the host loop, eager edges): color, alpha and PNG
+    bytes bit-equal; ``kernels``: the path's kernels, each launched (counts
+    set to 0 just before the render, read just after).  Returns the
+    render."""
+    import numpy as np
+    import torch
+
+    from ptx_torch import render as R
+    from ptx_torch.kernels import _build
+
+    _build.reset_launches()
+    got, calls = counted_passes(lambda: R.render(fs_np, static_np, cfg,
+                                                 device=dev))
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    want = eager_render(fs_np, static_np, cfg, dev)
+    k = R.resolve_samples_per_launch(cfg)
+    if calls != -(-cfg.samples // k):
+        raise AssertionError(f"{tag}: render made {calls} device-pass calls "
+                             f"for {cfg.samples} samples at {k} per launch")
+    for name in kernels if dev.type == "cuda" else ():
+        if not launches.get(name):
+            raise AssertionError(f"{tag}: the device pass never launched {name}")
+    results_bit_equal(tag, got, want, tmp)
+    if not np.isfinite(got.color).all() or got.image[..., :3].max() == 0:
+        raise AssertionError(f"{tag}: image black or not finite")
+    log(f"(a) {tag} ({cfg.width}x{cfg.height}, {cfg.samples} spp, {k} per "
+        f"launch): device pass bit-equal to the host loop (color, alpha, PNG "
+        f"bytes) in {calls} pass calls; launches {launches}")
+    return got
+
+
+def pass_sample_checks(tag, fs, static, cfg, dev, smi):
+    """(b) no sync in a whole sample of the pass after warm-up; (c) one
+    sample's launches equal the same device loop's with eager edges, its
+    profiled device kernels, the loop's graphs, capture seconds and pool
+    bytes.  Returns the pass."""
+    import torch
+
+    from ptx_torch import render as R
+    from ptx_torch.integrator.graphs import DevicePass
+    from ptx_torch.kernels import _build
+
+    k = R.resolve_samples_per_launch(cfg)
+    dpass = (R.make_sample_fn(static, cfg, dev) if k == 1
+             else R.make_batched_sample_fn(static, cfg, k, dev))
+    if not isinstance(dpass, DevicePass):
+        raise AssertionError(f"{tag}: the sample function is no device pass")
+    R.progressive_render(fs, static, cfg, dpass if k == 1 else None,
+                         dpass if k > 1 else None, k, dev)
+    no_sync(f"{tag}, one whole sample of the device pass ({k} per launch)",
+            lambda: dpass.accumulate(fs, 0, k))
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    dpass.accumulate(fs, 0, k)
+    torch.cuda.synchronize()
+    got = {n: v for n, v in _build.LAUNCHES.items() if v}
+    _build.reset_launches()
+    dpass(fs, 0)
+    torch.cuda.synchronize()
+    want = {n: v for n, v in _build.LAUNCHES.items() if v}
+    if got != want:
+        raise AssertionError(f"{tag}: a sample's launches {got} on the device "
+                             f"pass, {want} with eager edges")
+    n_dev, busy, wall_ms, _ = profile_sample(
+        lambda fs, s: dpass.accumulate(fs, s, k), fs)
+    pool = dpass.loop.pool_bytes()
+    log(f"(c) {tag}: one sample's launches {got}, the same as with eager "
+        f"edges; profiled sample {n_dev} device kernels, busy {busy:.1f} of "
+        f"{wall_ms:.1f} ms; {dpass.loop.captures} graphs captured in "
+        f"{dpass.loop.capture_seconds:.3f} s, pool "
+        f"{'not measured' if pool is None else f'{pool:,} bytes'} ({smi})")
+    return dpass
+
+
+def pass_turns(tag, dpass, fs, static, cfg, dev, smi):
+    """(d) the sample loop through the pass and through the same device loop
+    with eager edges (``loop_render``) in turns (paths/s), then one loop of
+    each under :func:`replay_split`."""
+    from ptx_torch import render as R
+
+    paths = cfg.width * cfg.height * cfg.samples
+
+    def run(name):
+        if name == "pass":
+            return R.progressive_render(fs, static, cfg, dpass, None, 1, dev)
+        return loop_render(dpass.loop, fs, static, cfg, dev)
+
+    rates = {"edges": [], "pass": []}
+    for name in PASS_TURNS:
+        _, wall = timed(lambda: run(name), dev)
+        rates[name].append(paths / wall * 1e3)
+    for name, r in rates.items():
+        log(f"(d) {tag}, {name}: " + ", ".join(f"{x:,.0f}" for x in r)
+            + f" paths/s in turns ({smi})")
+    for name in ("edges", "pass"):
+        log(f"(d) {tag}, {name}: {split_line(replay_split(lambda: run(name)))} "
+            f"({smi})")
+    return rates
+
+
+def check_device_pass(fs_np, static_np, cfg, dev, smi):
+    """Phase 15: the sample pass as a device program
+    (``ptx_torch.integrator.graphs.DevicePass``): (a) ``render.render``
+    against the host loop's render bit for bit (color, alpha, PNG bytes) on
+    the smoke cell, the bvh path, the translucent cell, PASS_BATCHED and
+    PASS_CLAIM, and a resume (2 samples, then 4) against the uninterrupted
+    4; (b) no sync in a whole sample; (c) a sample's launches, device
+    kernels, graphs, capture seconds, pool bytes; (d) paths/s against eager
+    edges in turns, the busy share and the idle split, on the tile
+    traversal and the bvh path; (e) the device scan's load graph, the loss
+    bit-equal and the gradients within ROUTE_REL_L2, grad-paths/s in
+    turns."""
+    from ptx_torch import bench
+    from ptx_torch import render as R
+
+    cfg_b = dataclasses.replace(cfg, intersector="bvh")
+    with tempfile.TemporaryDirectory() as tmp:
+        whole = hold_pass("smoke cell", fs_np, static_np, cfg, dev, tmp,
+                          MAIN_PATH_KERNELS)
+        hold_pass("bvh", fs_np, static_np, cfg_b, dev, tmp, BVH_PATH_KERNELS)
+        hold_pass("translucent", *translucent_scene(fs_np, static_np), cfg,
+                  dev, tmp, MAIN_PATH_KERNELS)
+        fs_sn, static_sn = R.load_scene(SMALL_SCENE)
+        fs_sn = fs_sn._replace(sun_dir=fs_np.sun_dir,
+                               sun_energy=fs_np.sun_energy,
+                               sun_angular_radius=fs_np.sun_angular_radius)
+        static_sn = dataclasses.replace(static_sn, has_sun=True)
+        hold_pass(f"{SMALL_SCENE} batched", fs_sn, static_sn,
+                  dataclasses.replace(cfg, **PASS_BATCHED), dev, tmp,
+                  SMALL_PATH_KERNELS)
+        hold_pass("claim blend", fs_np, static_np,
+                  dataclasses.replace(cfg, **PASS_CLAIM), dev, tmp,
+                  MAIN_PATH_KERNELS)
+        path = os.path.join(tmp, "resume.npz")
+        R.render(fs_np, static_np, dataclasses.replace(cfg, samples=2),
+                 device=dev, checkpoint_path=path, checkpoint_every=2)
+        resumed = R.render(fs_np, static_np, cfg, device=dev,
+                           checkpoint_path=path, checkpoint_every=2)
+        results_bit_equal("resume", resumed, whole, tmp)
+        log("(a) resume: 2 samples with a checkpoint, then 4, bit-equal to the "
+            "uninterrupted 4 (color, alpha, PNG bytes)")
+
+    rates = {}
+    for tag, c in (("tile traversal", cfg), ("bvh", cfg_b)):
+        fs, static = R.ensure_accel(fs_np, static_np, c, device=dev)
+        dpass = pass_sample_checks(tag, fs, static, c, dev, smi)
+        rates[tag] = pass_turns(tag, dpass, fs, static, c, dev, smi)
+        del dpass, fs
+    fs, static = R.ensure_accel(*R.load_scene(SMALL_SCENE), cfg, device=dev)
+    pass_sample_checks(f"{SMALL_SCENE} batched", fs, static,
+                       dataclasses.replace(cfg, **PASS_BATCHED), dev, smi)
+
+    # (e) the device scan: its initial state from a load graph per shape.
+    g_cfg = grad_config(bench.BACKWARD_SHAPE)
+    fs, static = R.ensure_accel(*R.load_scene(bench.BACKWARD_SCENE), g_cfg,
+                                device=dev)
+    params = {f: getattr(fs, f) for f in DIFF_FIELDS}
+    host, scan = scan_pair(static, g_cfg, DIFF_FIELDS, dev)
+    vgs = scan_vgs(host, scan, g_cfg, grad_target(g_cfg, dev), DIFF_FIELDS)
+    hold_scan("(e) device scan", vgs, scan, params, fs)
+    loads = {r: ("load",) in launch.graphs
+             for r, launch in scan._launches.items()}
+    if dev.type == "cuda" and not all(loads.values()):
+        raise AssertionError(f"the device scan's load graphs: {loads}")
+    log(f"(e) device scan: a load graph per launch shape {sorted(loads)}")
+    tag = f"materials {g_cfg.width}x{g_cfg.height} {g_cfg.samples} spp"
+    rates[f"scan {tag}"] = scan_turns(f"(e) {tag}", vgs, params, fs, g_cfg,
+                                      dev, smi, SCAN_TURNS)
+    return rates
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "ptx_torch")):
         print("chip_smoke.py must run from a checkout of the repository",
@@ -3380,6 +3737,10 @@ def main() -> int:
     # 14. the device scan: counts reset just before each launch's value and
     # gradient, read just after.
     check_device_scan(dev, smi)
+
+    # 15. the device pass: counts reset just before each render and each
+    # sample, read just after.
+    check_device_pass(fs_np, static_np, cfg, dev, smi)
 
     if "jax" in sys.modules or "ptx" in sys.modules:
         raise AssertionError("the port imported jax or the JAX package")

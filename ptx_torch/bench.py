@@ -158,8 +158,12 @@ def run_scene_bench(scene: str, metric: str, cfg, reps: int = 3,
                     single_pass: bool = False, device="cuda") -> dict:
     """paths/s of the production sample loop on one scene and config: the
     fastest of ``reps`` passes over all launches (one pass when
-    ``single_pass``), after one warm-up launch."""
+    ``single_pass``), after one warm-up launch.  A device pass
+    (``graphs.DevicePass``, the fused integrator) folds each launch into
+    its carry, as ``render.progressive_render`` runs it; another route
+    traces without the fold."""
     from ptx_torch import render as R
+    from ptx_torch.integrator.graphs import DevicePass
 
     dev = _device(device)
     t_load = time.perf_counter()
@@ -169,13 +173,20 @@ def run_scene_bench(scene: str, metric: str, cfg, reps: int = 3,
     n_launches = -(-cfg.samples // k)
     fn = (R.make_batched_sample_fn(static, cfg, k, dev) if k > 1
           else R.make_sample_fn(static, cfg, dev))
-    _host_seconds(lambda: fn(fs, 0), dev)
+
+    def launch(i):
+        if isinstance(fn, DevicePass):
+            fn.accumulate(fs, i * k, min(k, cfg.samples - i * k))
+        else:
+            fn(fs, i * k)
+
+    _host_seconds(lambda: launch(0), dev)
     print(f"[bench] {metric}: load+accel {t_accel - t_load:.1f}s, warm-up "
           f"{time.perf_counter() - t_accel:.1f}s", file=sys.stderr)
 
     def run():
         for i in range(n_launches):
-            fn(fs, i * k)
+            launch(i)
 
     dt = min(_host_seconds(run, dev) for _ in range(1 if single_pass else reps))
     paths = cfg.width * cfg.height * k * n_launches

@@ -14,11 +14,14 @@ bit-identical to it:
 
 * **Static buffers.**  Each launch shape (``r`` lanes) has an initial
   state of its own, and step ``it`` of it reads its predecessor's outputs
-  in place.  The fields a call may hand over anew (the parameters, the
-  packed rows ``inject_params`` overlays with them, the tiles a geometry
-  set repacks per call) are copied into the scan's own buffers; every
-  other field of the scene is read in place, so a call with another
-  scene's tensors raises.
+  in place.  A call copies its pixel and sample ids into the initial
+  state and replays the shape's load graph, which writes the camera rays
+  and the fresh lanes from them (``wavefront.load_initial_state``).  The
+  fields a call may hand over anew (the parameters, the packed rows
+  ``inject_params`` overlays with them, the tiles a geometry set repacks
+  per call) are copied into the scan's own buffers; every other field of
+  the scene is read in place, so a call with another scene's tensors
+  raises.
 * **The live count one iteration late**, as in ``integrator.graphs.
   DeviceLoop``: after it enqueues step ``i`` the scan copies the live count
   ``c_{i+1}`` into pinned host memory and records an event; before step
@@ -74,8 +77,9 @@ import torch
 
 from ptx_torch.config import RenderConfig
 from ptx_torch.integrator.graphs import GraphRunner, read_count
-from ptx_torch.integrator.wavefront import (RayState, initial_state,
-                                            make_step, max_iterations)
+from ptx_torch.integrator.wavefront import (RayState, empty_state,
+                                            load_initial_state, make_step,
+                                            max_iterations)
 from ptx_torch.scene.flatten import FlatScene, SceneStatic
 
 
@@ -86,9 +90,10 @@ class _Launch:
 
     fields: Tuple[str, ...] = ()
 
-    def __init__(self, template: RayState, max_iters: int):
-        self.cuda = template.orig.device.type == "cuda"
-        self.out = RayState(*(torch.empty_like(x) for x in template))
+    def __init__(self, r: int, device, max_iters: int):
+        self.cuda = device.type == "cuda"
+        self.out = empty_state(r, device)
+        self.graphs = {}  # the load's
         self.gout = {}
         self.steps: List[_Step] = []
         # counts[i] = c_i, the live count entering step i, written by the
@@ -220,17 +225,24 @@ class DeviceScan(GraphRunner):
         return launch, self._loop(launch)
 
     def _load(self, pixel_ids, sample_ids, copies, grads) -> _Launch:
-        """The per-call tensors into the buffers, the initial state into
-        its launch's; returns the launch."""
+        """The per-call tensors into the buffers, the ids into their
+        launch's initial state, then the rest of it (camera rays, fresh
+        lanes) from them: on a CUDA device the replay of the launch
+        shape's load graph.  Returns the launch."""
         for f, x in zip(self.copy_fields + self.grad_fields, (*copies, *grads)):
             self._bufs[f].copy_(x)
-        init = initial_state(self._fs, self.cfg, pixel_ids, sample_ids)
-        r = init.orig.shape[0]
+        r = pixel_ids.shape[0]
         launch = self._launches.get(r)
         if launch is None:
-            launch = self._launches[r] = _Launch(init, self.max_iters)
-        for dst, src in zip(launch.out, init):
-            dst.copy_(src)
+            launch = self._launches[r] = _Launch(r, pixel_ids.device,
+                                                 self.max_iters)
+        launch.out.pixel_ids.copy_(pixel_ids)
+        launch.out.sample_ids.copy_(sample_ids)
+
+        def load():
+            load_initial_state(self._fs, self.cfg, launch.out)
+
+        self._run(launch.graphs, ("load",), load, launch.cuda, warm=load)
         return launch
 
     def _warm_up(self, launch: _Launch):

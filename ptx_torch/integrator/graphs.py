@@ -40,19 +40,30 @@ The graphs read the scene's tensors in place, so a loop serves one scene:
 a call with another scene's tensors raises, and a failed capture raises.
 On CPU tensors the loop runs the same schedule (buffers, lagged count,
 dead chunks) without capture; the CPU tests hold it against the host loop.
+
+A call ``(fs, pixel_ids, sample_ids)`` copies the ids into the wavefront,
+replays the shape's load graph (camera rays and fresh lanes,
+``wavefront.load_initial_state``), runs the loop and returns the outputs
+un-permuted into new tensors.  :class:`DevicePass` runs a whole sample
+pass without those eager edges: per launch one copy of its scalars, a
+prologue graph that also makes the ids, the loop, and an epilogue graph
+that folds the launch into the pass's carry in place -- the counterpart
+of ``ptx``'s jitted sample pass and donated running mean.
 """
 
 from __future__ import annotations
 
+import gc
 import time
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ptx_torch.config import RenderConfig
 from ptx_torch.integrator import wavefront
-from ptx_torch.integrator.wavefront import (RayState, initial_state,
-                                            max_iterations)
+from ptx_torch.integrator.wavefront import (RayState, empty_state,
+                                            load_initial_state, max_iterations)
 from ptx_torch.kernels import _build, shade_cuda, sorting
 from ptx_torch.scene.flatten import FlatScene, SceneStatic
 
@@ -79,13 +90,19 @@ class GraphRunner:
         """``(graph, tally, fn())``: ``fn``'s work captured into a CUDA
         graph in the pool on the runner's stream, and the launches the
         wrappers counted meanwhile (taken back out of ``_build.LAUNCHES``:
-        a capture launches nothing).  Raises if the capture fails."""
+        a capture launches nothing).  Raises if the capture fails.
+
+        The garbage collector is off during the capture: a collection
+        there may free another runner's graphs and memory pool, and the
+        CUDA calls that destroy them invalidate the capture."""
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
             self._stream = torch.cuda.Stream()
         before = dict(_build.LAUNCHES)
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.stream(self._stream):
                 graph.capture_begin(self._pool)
@@ -94,12 +111,29 @@ class GraphRunner:
                 finally:
                     graph.capture_end()
         finally:
+            if collecting:
+                gc.enable()
             tally = {k: n - before[k] for k, n in _build.LAUNCHES.items()
                      if n != before[k]}
             _build.LAUNCHES.update(before)
         self.captures += 1
         self.capture_seconds += time.perf_counter() - t0
         return graph, tally, result
+
+    def _run(self, graphs: dict, key, fn, cuda: bool, warm=None):
+        """``fn()`` on the CPU; on a CUDA device the replay of
+        ``graphs[key]``, captured on first use after ``warm()`` (an eager
+        run of the same work, so that what a first use sets up happens
+        outside capture)."""
+        if not cuda:
+            fn()
+            return
+        entry = graphs.get(key)
+        if entry is None:
+            if warm is not None:
+                warm()
+            entry = graphs[key] = self._graph(fn)[:2]
+        self._replay(*entry)
 
     def _replay(self, graph, tally):
         """Replay ``graph`` and count its capture's launches."""
@@ -137,16 +171,17 @@ def read_count(launch, i: int) -> int:
 class _Launch:
     """The wavefront buffers, live counts and graphs of one launch shape."""
 
-    def __init__(self, template: RayState, max_iters: int, compact: bool):
-        r = template.orig.shape[0]
-        dev = template.orig.device
-        self.cuda = dev.type == "cuda"
+    def __init__(self, r: int, device, max_iters: int, compact: bool):
+        self.cuda = device.type == "cuda"
         # Without compaction the host loop steps the whole wavefront.
         self.chunk, self.n_chunks = (wavefront.chunk_layout(r) if compact
                                      else (r, 1))
-        self.state = RayState(*(torch.empty_like(x) for x in template))
-        self.slot = torch.empty((r,), dtype=torch.int64, device=dev)
-        self.lanes = torch.arange(r, device=dev)
+        self.state = empty_state(r, device)
+        self.slot = torch.empty((r,), dtype=torch.int64, device=device)
+        self.lanes = torch.arange(r, device=device)
+        # The outputs in lane order again (a pass's epilogue writes them).
+        self.out = ((torch.empty((r, 3), device=device),
+                     torch.empty((r,), device=device)) if compact else None)
         # counts[i] = c_i, the live count entering iteration i, written by
         # the device into (pinned) host memory and read through ``host``.
         self.counts = torch.zeros((max_iters + 1,), dtype=torch.int64,
@@ -159,7 +194,19 @@ class _Launch:
 
     def buffer_bytes(self) -> int:
         return sum(x.numel() * x.element_size()
-                   for x in (*self.state, self.slot, self.lanes))
+                   for x in (*self.state, self.slot, self.lanes,
+                             *(self.out or ())))
+
+    def unpermuted(self):
+        """The launch's (radiance, alpha) in lane order: the wavefront's
+        own buffers without compaction, else ``out`` written through
+        ``slot`` (no allocation outlives the call)."""
+        state = self.state
+        if self.out is None:
+            return state.radiance, state.alpha
+        self.out[0][self.slot] = state.radiance
+        self.out[1][self.slot] = state.alpha
+        return self.out
 
 
 class DeviceLoop(GraphRunner):
@@ -181,22 +228,42 @@ class DeviceLoop(GraphRunner):
 
     def __call__(self, fs: FlatScene, pixel_ids, sample_ids):
         r = pixel_ids.shape[0]
+        self._bind(fs)
+        with torch.no_grad():
+            launch = self._launch(r, pixel_ids.device)
+            launch.state.pixel_ids.copy_(pixel_ids)
+            launch.state.sample_ids.copy_(sample_ids)
+            self._start(fs, launch, launch.graphs, ("load",))
+            self._loop(fs, launch, r)
+            return tuple(x.clone() for x in launch.unpermuted())
+
+    def _launch(self, r: int, device) -> _Launch:
+        """The buffers of launch shape ``r``."""
         if r % shade_cuda.LANES:
             raise ValueError(f"ray count {r} must be a multiple of "
                              f"{shade_cuda.LANES}")
-        self._bind(fs)
-        with torch.no_grad():
-            init = initial_state(fs, self.cfg, pixel_ids, sample_ids)
-            launch = self._launches.get(r)
-            if launch is None:
-                launch = self._launches[r] = _Launch(init, self.max_iters,
-                                                     self.compact)
-            for dst, src in zip(launch.state, init):
-                dst.copy_(src)
+        launch = self._launches.get(r)
+        if launch is None:
+            launch = self._launches[r] = _Launch(r, torch.device(device),
+                                                 self.max_iters, self.compact)
+        return launch
+
+    def _start(self, fs: FlatScene, launch: _Launch, graphs: dict, key,
+               ids=None):
+        """A launch's prologue, as the graph ``graphs[key]`` on a CUDA
+        device: ``ids()`` (writes the wavefront's pixel and sample ids;
+        None: they are there already), the camera rays and the fresh lanes
+        into the wavefront, the slots reset.  Before the shape's first
+        chunk step, the warm-up."""
+        def prologue():
+            if ids is not None:
+                ids()
+            load_initial_state(fs, self.cfg, launch.state)
             launch.slot.copy_(launch.lanes)
-            if not launch.warm:
-                self._warm_up(fs, launch)
-            return self._loop(fs, launch, r)
+
+        self._run(graphs, key, prologue, launch.cuda, warm=prologue)
+        if not launch.warm:
+            self._warm_up(fs, launch)
 
     def _bind(self, fs: FlatScene):
         """Take ``fs`` as the loop's scene on the first call; raise on a
@@ -241,25 +308,19 @@ class DeviceLoop(GraphRunner):
                 in_c0 = in_c0 or counts[it - 1] <= skip
             n_live = min(-(-counts[max(it - 1, 0)] // chunk), n_chunks)
             if self.compact and not in_c0:
-                self._run(launch, ("sort",), lambda: self._sort(launch))
+                self._run(launch.graphs, ("sort",),
+                          lambda: self._sort(launch), launch.cuda)
                 sorts += 1
             for ci in range(n_live):
-                self._run(launch, (it, ci),
-                          lambda ci=ci: self._chunk_step(fs, launch, it, ci))
+                self._run(launch.graphs, (it, ci),
+                          lambda ci=ci: self._chunk_step(fs, launch, it, ci),
+                          launch.cuda)
             launch.counts[it + 1].copy_(launch.state.alive.sum(),
                                         non_blocking=True)
             if launch.cuda:
                 launch.events[it + 1].record()
             steps.append(n_live)
         self._last = (launch, counts, steps, sorts)
-        state = launch.state
-        if not self.compact:
-            return state.radiance.clone(), state.alpha.clone()
-        radiance = torch.empty_like(state.radiance)
-        radiance[launch.slot] = state.radiance
-        alpha = torch.empty_like(state.alpha)
-        alpha[launch.slot] = state.alpha
-        return radiance, alpha
 
     def _sort(self, launch: _Launch):
         state, slot = wavefront.sort_wavefront(launch.state, launch.slot,
@@ -273,17 +334,6 @@ class DeviceLoop(GraphRunner):
                         self._sun)
         for dst, src in zip(launch.state, sub):
             dst[sl] = src
-
-    def _run(self, launch: _Launch, key, fn):
-        """``fn`` on the CPU; on a CUDA device the replay of its graph,
-        captured on first use."""
-        if not launch.cuda:
-            fn()
-            return
-        entry = launch.graphs.get(key)
-        if entry is None:
-            entry = launch.graphs[key] = self._graph(fn)[:2]
-        self._replay(*entry)
 
     def buffer_bytes(self) -> int:
         """Device bytes of the static wavefront buffers, all shapes."""
@@ -309,3 +359,197 @@ class DeviceLoop(GraphRunner):
                     chunk_steps=sum(steps), host_iterations=len(host),
                     host_chunk_steps=sum(host),
                     dead_chunks=sum(steps) - sum(host))
+
+
+# --------------------------------------------------------------------------
+# The sample pass
+# --------------------------------------------------------------------------
+
+def launch_ids(first: int, p: int, k: int, sample0: int, device):
+    """The ids of a launch of ``k`` samples of pixels ``first .. first + p
+    - 1``, as ``ptx``'s ``chunk_pass`` / ``batch_pass`` make them:
+    ``first + tile(arange(p), k)`` and ``sample0 + repeat(arange(k), p)``."""
+    pixel_ids = first + torch.arange(p, dtype=torch.int32,
+                                     device=device).repeat(k)
+    sample_ids = sample0 + torch.arange(
+        k, dtype=torch.int32, device=device).repeat_interleave(p)
+    return pixel_ids, sample_ids
+
+
+def launch_scalars(first: int, s: int, count: int, k: int, claim: bool
+                   ) -> np.ndarray:
+    """The scalars of a :class:`DevicePass` launch of samples ``s .. s + k
+    - 1`` (``count`` of them folded): int32 ``[first pixel, s]``, then the
+    bits of float32 ``[count, n_0 .. n_{k-1}, inv_0 .. inv_{k-1}]``: for the
+    running mean ``n_0 = s`` and ``inv_0 = 1 / (s + count)``, for the claim
+    blend ``n_i = s + i`` and ``inv_i = 1 / (s + i + 1)``, each divided in
+    float32 as the plain folds divide (IEEE division rounds correctly on
+    every device, and every ``n`` below 2^24 is exact in float32)."""
+    h = np.zeros(3 + 2 * k, np.int32)
+    h[0], h[1] = first, s
+    f = h[2:].view(np.float32)
+    f[0] = count
+    if claim:
+        n = np.arange(s, s + k)
+        f[1:1 + k] = n
+        f[1 + k:] = np.float32(1.0) / (n + 1).astype(np.float32)
+    else:
+        f[1] = s
+        f[1 + k] = np.float32(1.0) / np.float32(s + count)
+    return h
+
+
+def fold_mean(carry, colors, alphas, f):
+    """``render._update_mean`` (k = 1) and ``_update_mean_batch`` on device
+    scalars, into ``carry`` in place: ``colors`` [k, P, 3], ``alphas`` [k,
+    P], ``f`` the launch's float scalars (:class:`DevicePass`).  The same
+    operations on the same shapes as the plain versions, each rounded where
+    theirs is, so the carry is theirs bit for bit."""
+    k = colors.shape[0]
+    color, alpha = carry[0], carry[1]
+    if k == 1:
+        x, a = colors[0], alphas[0]
+    else:
+        valid = (torch.arange(k, device=colors.device) < f[0]).to(colors.dtype)
+        x = (colors * valid[:, None, None]).sum(0)
+        a = (alphas * valid[:, None]).sum(0)
+    n, inv = f[1], f[1 + k]
+    color.mul_(n).add_(x).mul_(inv)
+    alpha.mul_(n).add_(a).mul_(inv)
+
+
+def fold_claim(carry, colors, alphas, f):
+    """``render._update_claim_batch`` on device scalars, into ``carry`` in
+    place, as ``ptx``'s ``_update_claim_batch`` folds: every one of the k
+    samples runs ``_claim_step`` and is kept where ``i < count``."""
+    k = colors.shape[0]
+    color, alpha, claimed = carry
+    for i in range(k):
+        x, a = colors[i], alphas[i]
+        n, inv = f[1 + i], f[1 + k + i]
+        opaque = a > 0.5
+        claim_now = opaque & ~claimed
+        blend = opaque & claimed
+        trans_on_claimed = ~opaque & claimed
+        new_color = torch.where(
+            claim_now[:, None], x,
+            torch.where(blend[:, None], (color * n + x) * inv, color))
+        new_alpha = torch.where(
+            claim_now, inv,
+            torch.where(blend | trans_on_claimed, (alpha * n + a) * inv, alpha))
+        new_claimed = claimed | claim_now
+        do = f[0] > i
+        color.copy_(torch.where(do, new_color, color))
+        alpha.copy_(torch.where(do, new_alpha, alpha))
+        claimed.copy_(torch.where(do, new_claimed, claimed))
+
+
+class DevicePass:
+    """The sample pass of a frame, or of a rank's pixel slice, on a
+    :class:`DeviceLoop`: the counterpart of ``ptx``'s jitted
+    ``sample_pass`` / ``chunk_pass`` / ``batch_pass`` followed by its
+    donated ``_update_mean*`` / ``_update_claim*`` (``ptx/render.py``).
+    ``render.make_sample_fn`` / ``make_batched_sample_fn`` and
+    ``parallel.dist.make_distributed_sample_fn`` return it for the fused
+    integrator.
+
+    The pass covers pixels ``first .. first + n_pixels - 1`` in launches of
+    ``chunk`` pixels and ``k`` samples (``k > 1``: one launch of the whole
+    slice).  It owns the carry (``carry``: color [n_pixels, 3], alpha, and
+    for a transparent background the claimed mask), which
+    ``render.progressive_render`` resets or loads and reads only at a
+    checkpoint, a preview or the end.  :meth:`accumulate` folds samples
+    ``s .. s + count - 1`` into it; each launch is
+
+    1. one non-blocking copy of its scalars from pinned memory (a fresh
+       block of the caching host allocator, so no copy still in flight is
+       overwritten): the first pixel and ``sample0``, then as float32
+       ``count``, ``n_i = s + i`` and ``inv_i`` (the mean's ``1 / (s +
+       count)``, or the claim blend's ``1 / (s + i + 1)``), computed as the
+       plain folds compute them;
+    2. the prologue graph: the ids (``launch_ids``' formula on the
+       scalars), the camera rays and fresh lanes into the loop's wavefront
+       (``DeviceLoop._start``);
+    3. the device loop's replays;
+    4. the epilogue graph of the launch's place in the frame: the outputs
+       un-permuted through the slots and folded into that slice of the
+       carry in place (:func:`fold_mean`, :func:`fold_claim`; a fold is
+       elementwise per pixel, so slices folded one by one equal the
+       concatenated frame folded once).
+
+    No host read happens between launches but the loop's lagged live
+    counts.  On CPU tensors the same code runs without capture.  Graphs
+    live on the pass (they read its carry); at most one prologue and
+    ``n_pixels / chunk`` epilogues.  Called as ``(fs, sample0) ->
+    (radiance, alpha)`` ([P, 3] / [P], or [k, P, 3] / [k, P] when ``k >
+    1``) it is the plain sample function over ``DeviceLoop.__call__``
+    (the debug views, a profiled sample)."""
+
+    def __init__(self, loop: DeviceLoop, cfg: RenderConfig, device,
+                 first: int, n_pixels: int, chunk: int, k: int):
+        self.loop, self.k, self.first, self.chunk = loop, k, first, chunk
+        self.device = torch.device(device)
+        self.cuda = self.device.type == "cuda"
+        self.claim = cfg.transparent_background
+        dev = dict(device=self.device)
+        self.carry = (torch.zeros((n_pixels, 3), **dev),
+                      torch.zeros((n_pixels,), **dev))
+        if self.claim:
+            self.carry += (torch.zeros((n_pixels,), dtype=torch.bool, **dev),)
+        # ints [first, sample0], then float32 bits [count, n_i.., inv_i..].
+        self._scalars = torch.zeros((3 + 2 * k,), dtype=torch.int32, **dev)
+        self._lanes = launch_ids(0, chunk, k, 0, self.device)
+        self._graphs = {}
+
+    def __call__(self, fs: FlatScene, sample0: int):
+        parts = [self.loop(fs, *launch_ids(start, self.chunk, self.k,
+                                           sample0, self.device))
+                 for start in self._starts()]
+        radiance = torch.cat([p[0] for p in parts])
+        alpha = torch.cat([p[1] for p in parts])
+        if self.k == 1:
+            return radiance, alpha
+        return (radiance.reshape(self.k, self.chunk, 3),
+                alpha.reshape(self.k, self.chunk))
+
+    def _starts(self):
+        return range(self.first, self.first + self.carry[1].shape[0],
+                     self.chunk)
+
+    def accumulate(self, fs: FlatScene, s: int, count: int):
+        """Fold samples ``s .. s + count - 1`` (``count <= k``; the launch
+        traces all k) into the carry, enqueued without a device sync."""
+        loop = self.loop
+        loop._bind(fs)
+        r = self.chunk * self.k
+        with torch.no_grad():
+            launch = loop._launch(r, self.device)
+            for j, start in enumerate(self._starts()):
+                self._write_scalars(start, s, count)
+                loop._start(fs, launch, self._graphs, ("prologue",),
+                            lambda: self._ids(launch))
+                loop._loop(fs, launch, r)
+                part = tuple(c[j * self.chunk:(j + 1) * self.chunk]
+                             for c in self.carry)
+                loop._run(self._graphs, ("epilogue", j),
+                          lambda: self._fold(launch, part), launch.cuda,
+                          warm=lambda: self._fold(
+                              launch, tuple(c.clone() for c in part)))
+
+    def _write_scalars(self, first: int, s: int, count: int):
+        host = torch.empty(self._scalars.shape, dtype=torch.int32,
+                           pin_memory=self.cuda)
+        host.numpy()[:] = launch_scalars(first, s, count, self.k, self.claim)
+        self._scalars.copy_(host, non_blocking=True)
+
+    def _ids(self, launch: _Launch):
+        pixel_lanes, sample_lanes = self._lanes
+        torch.add(pixel_lanes, self._scalars[0], out=launch.state.pixel_ids)
+        torch.add(sample_lanes, self._scalars[1], out=launch.state.sample_ids)
+
+    def _fold(self, launch: _Launch, carry):
+        radiance, alpha = launch.unpermuted()
+        colors = radiance.view(self.k, self.chunk, 3)
+        alphas = alpha.view(self.k, self.chunk)
+        f = self._scalars[2:].view(torch.float32)
+        (fold_claim if self.claim else fold_mean)(carry, colors, alphas, f)

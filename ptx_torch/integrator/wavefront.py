@@ -403,27 +403,46 @@ def make_shade_fn(static: SceneStatic, cfg: RenderConfig, tex_shard=None):
     return shade
 
 
+def empty_state(r: int, device) -> RayState:
+    """An uninitialised wavefront of ``r`` lanes."""
+    f32, vec = dict(device=device), dict(size=(r, 3), device=device)
+    return RayState(
+        orig=torch.empty(**vec), dirn=torch.empty(**vec),
+        radiance=torch.empty(**vec), throughput=torch.empty(**vec),
+        alpha=torch.empty((r,), **f32),
+        alive=torch.empty((r,), dtype=torch.bool, device=device),
+        bounce=torch.empty((r,), dtype=torch.int32, device=device),
+        pixel_ids=torch.empty((r,), dtype=torch.int32, device=device),
+        sample_ids=torch.empty((r,), dtype=torch.int32, device=device),
+    )
+
+
+def load_initial_state(fs: FlatScene, cfg: RenderConfig, state: RayState):
+    """Write the camera rays of ``state``'s own ``pixel_ids`` /
+    ``sample_ids`` and the fresh lanes' fields into ``state`` in place (the
+    device programs' launch buffers; no allocation outlives the call)."""
+    q = cfg.quirks
+    orig, dirn = pcamera.generate_rays(
+        fs, state.pixel_ids, state.sample_ids, cfg.width, cfg.height,
+        cfg.seed, q.first_sample_centered, cfg.transparent_background,
+    )
+    state.orig.copy_(orig)
+    state.dirn.copy_(dirn)
+    state.radiance.zero_()
+    state.throughput.fill_(1.0)
+    state.alpha.zero_()
+    state.alive.fill_(True)
+    state.bounce.fill_(cfg.bounces)
+
+
 def initial_state(fs: FlatScene, cfg: RenderConfig, pixel_ids, sample_ids
                   ) -> RayState:
     """The wavefront of camera rays for ``pixel_ids`` / ``sample_ids``."""
-    q = cfg.quirks
-    orig, dirn = pcamera.generate_rays(
-        fs, pixel_ids, sample_ids, cfg.width, cfg.height, cfg.seed,
-        q.first_sample_centered, cfg.transparent_background,
-    )
-    r = pixel_ids.shape[0]
-    dev = pixel_ids.device
-    return RayState(
-        orig=orig.contiguous(),
-        dirn=dirn,
-        radiance=torch.zeros((r, 3), device=dev),
-        throughput=torch.ones((r, 3), device=dev),
-        alpha=torch.zeros((r,), device=dev),
-        alive=torch.ones((r,), dtype=torch.bool, device=dev),
-        bounce=torch.full((r,), cfg.bounces, dtype=torch.int32, device=dev),
-        pixel_ids=pixel_ids.to(torch.int32),
-        sample_ids=sample_ids.to(torch.int32),
-    )
+    state = empty_state(pixel_ids.shape[0], pixel_ids.device)
+    state.pixel_ids.copy_(pixel_ids)
+    state.sample_ids.copy_(sample_ids)
+    load_initial_state(fs, cfg, state)
+    return state
 
 
 def max_iterations(static: SceneStatic, cfg: RenderConfig) -> int:

@@ -387,11 +387,18 @@ def make_distributed_sample_fn(
     The launch cap applies to one rank's wavefront: with ``k == 1`` a slice
     is traced in launches of :func:`launch_pixels`.
 
+    A rank without exchanges (dp) on the fused integrator gets the device
+    pass over its slice (``integrator.graphs.DevicePass``: each launch a
+    scalar copy and prologue, loop and epilogue graphs, the fold into its
+    carry in place); a tp rank keeps the host loop with eager edges (its
+    exchanges are collectives, outside capture).
+
     The port splits whole pixels over the ranks (``ptx`` splits the k * P
     lanes), so each rank's carry holds whole pixels; the RNG is keyed by
     absolute (pixel, sample) ids, so which rank traces a lane never changes
     its sample."""
     from ptx_torch import render as R
+    from ptx_torch.integrator.graphs import DeviceLoop, DevicePass, launch_ids
     from ptx_torch.kernels import sorting
 
     _check_layout(static, plan, comm)
@@ -419,29 +426,22 @@ def make_distributed_sample_fn(
         integrator = make_integrator(static, cfg, closest, any_hit,
                                      live_sync=live_sync, tex_shard=tex_shard)
 
-    def ids(first, count, repeat=1):
-        return torch.arange(first, first + count, dtype=torch.int32,
-                            device=device).repeat(repeat)
+    chunk = launch_pixels(plan, comm, n_pixels) if k == 1 else n_local
+    if isinstance(integrator, DeviceLoop):
+        return DevicePass(integrator, cfg, device, start, n_local, chunk, k)
 
     if k == 1:
-        chunk = launch_pixels(plan, comm, n_pixels)
-
         def sample_pass(fs: FlatScene, sample_id: int):
-            parts = [
-                integrator(fs, ids(s, chunk),
-                           torch.full((chunk,), sample_id, dtype=torch.int32,
-                                      device=device))
-                for s in range(start, stop, chunk)
-            ]
+            parts = [integrator(fs, *launch_ids(s, chunk, 1, sample_id, device))
+                     for s in range(start, stop, chunk)]
             return (torch.cat([p[0] for p in parts]),
                     torch.cat([p[1] for p in parts]))
 
         return sample_pass
 
     def batch_pass(fs: FlatScene, sample0: int):
-        sample_ids = sample0 + torch.arange(
-            k, dtype=torch.int32, device=device).repeat_interleave(n_local)
-        radiance, alpha = integrator(fs, ids(start, n_local, k), sample_ids)
+        radiance, alpha = integrator(
+            fs, *launch_ids(start, n_local, k, sample0, device))
         return radiance.reshape(k, n_local, 3), alpha.reshape(k, n_local)
 
     return batch_pass

@@ -30,7 +30,7 @@ import torch
 
 from ptx_torch.config import RenderConfig
 from ptx_torch.scene.flatten import FlatScene, SceneStatic
-from ptx_torch.integrator import accumulate
+from ptx_torch.integrator import accumulate, graphs
 from ptx_torch.integrator.wavefront import make_integrator
 from ptx_torch.scene.bridge import to_device, to_host
 
@@ -207,7 +207,10 @@ def resolve_samples_per_launch(cfg: RenderConfig, ways: int = 1) -> int:
 
 def make_sample_fn(static: SceneStatic, cfg: RenderConfig, device):
     """``(fs, sample_id) -> (radiance [P, 3], alpha [P])`` for one full-image
-    sample, in pixel chunks of :func:`resolve_rays_per_batch`."""
+    sample, in pixel chunks of :func:`resolve_rays_per_batch`.  For the
+    fused integrator on the device loop it is a
+    ``integrator.graphs.DevicePass``, which :func:`progressive_render` runs
+    as a device program."""
     integrator = make_integrator_for(static, cfg, device)
     n_pixels = cfg.width * cfg.height
     chunk = resolve_rays_per_batch(cfg) or n_pixels
@@ -215,15 +218,13 @@ def make_sample_fn(static: SceneStatic, cfg: RenderConfig, device):
         raise ValueError(
             f"rays_per_batch {chunk} must divide the pixel count {n_pixels}"
         )
+    if isinstance(integrator, graphs.DeviceLoop):
+        return graphs.DevicePass(integrator, cfg, device, 0, n_pixels, chunk, 1)
 
     def sample_pass(fs: FlatScene, sample_id: int):
-        parts = []
-        for start in range(0, n_pixels, chunk):
-            pixel_ids = torch.arange(start, start + chunk, dtype=torch.int32,
-                                     device=device)
-            sample_ids = torch.full((chunk,), sample_id, dtype=torch.int32,
-                                    device=device)
-            parts.append(integrator(fs, pixel_ids, sample_ids))
+        parts = [integrator(fs, *graphs.launch_ids(start, chunk, 1, sample_id,
+                                                   device))
+                 for start in range(0, n_pixels, chunk)]
         return (torch.cat([p[0] for p in parts]),
                 torch.cat([p[1] for p in parts]))
 
@@ -234,17 +235,18 @@ def make_batched_sample_fn(static: SceneStatic, cfg: RenderConfig, k: int,
                            device):
     """``(fs, sample0) -> (radiance [k, P, 3], alpha [k, P])``: samples
     ``sample0 .. sample0+k-1`` in one launch of k*P rays.  The RNG is keyed
-    by absolute (pixel, sample) ids, so this equals k single launches."""
+    by absolute (pixel, sample) ids, so this equals k single launches.  For
+    the fused integrator on the device loop it is a
+    ``integrator.graphs.DevicePass``, as in :func:`make_sample_fn`."""
     integrator = make_integrator_for(static, cfg, device)
     n_pixels = cfg.width * cfg.height
+    if isinstance(integrator, graphs.DeviceLoop):
+        return graphs.DevicePass(integrator, cfg, device, 0, n_pixels,
+                                 n_pixels, k)
 
     def batch_pass(fs: FlatScene, sample0: int):
-        pixel_ids = torch.arange(n_pixels, dtype=torch.int32,
-                                 device=device).repeat(k)
-        sample_ids = sample0 + torch.arange(
-            k, dtype=torch.int32, device=device
-        ).repeat_interleave(n_pixels)
-        radiance, alpha = integrator(fs, pixel_ids, sample_ids)
+        radiance, alpha = integrator(
+            fs, *graphs.launch_ids(0, n_pixels, k, sample0, device))
         return radiance.reshape(k, n_pixels, 3), alpha.reshape(k, n_pixels)
 
     return batch_pass
@@ -351,9 +353,20 @@ def progressive_render(fs: FlatScene, static: SceneStatic, cfg: RenderConfig,
                        ) -> RenderResult:
     """The progressive sample loop: exactly one of ``sample_fn`` (k == 1) and
     ``batch_fn`` (k > 1 samples per launch) traces; the running mean (or
-    claim blend) is carried on ``device``.  Checkpoints (written only
-    between launches), resume, previews and metrics as :func:`render`
-    describes.
+    claim blend) is carried on ``device`` in buffers updated in place and
+    read only at a checkpoint, a preview or the end.  Checkpoints (written
+    only between launches), resume (copied into the buffers), previews and
+    metrics as :func:`render` describes.
+
+    A ``graphs.DevicePass`` (the fused integrator on the device loop) owns
+    the carry and folds each launch into it in the launch's epilogue graph,
+    as ``ptx``'s donated ``_update_mean*`` / ``_update_claim*`` do; the
+    other routes (the plain shader, tp ranks) trace, then fold with
+    :func:`_update_mean` / :func:`_update_mean_batch` / :func:`_claim_step`
+    / :func:`_update_claim_batch` and copy the result into the carry.  The
+    metrics' "trace" phase times the launches (on a device pass, the fold
+    too), "accumulate" the fold of the other routes; on a device pass
+    "accumulate" holds no work, since its fold runs inside "trace".
 
     Multi-rank runs (``ptx_torch.parallel.dist.render_distributed``) carry
     only this rank's ``pixels`` = ``(start, stop)``, which its trace
@@ -367,9 +380,17 @@ def progressive_render(fs: FlatScene, static: SceneStatic, cfg: RenderConfig,
 
     start_px, stop_px = pixels if pixels is not None else (0, cfg.width * cfg.height)
     p = stop_px - start_px
-    carry = (torch.zeros((p, 3), device=device), torch.zeros((p,), device=device))
-    if cfg.transparent_background:
-        carry = carry + (torch.zeros((p,), dtype=torch.bool, device=device),)
+    dpass = next((f for f in (sample_fn, batch_fn)
+                  if isinstance(f, graphs.DevicePass)), None)
+    if dpass is not None:
+        carry = dpass.carry
+        for c in carry:
+            c.zero_()
+    else:
+        carry = (torch.zeros((p, 3), device=device),
+                 torch.zeros((p,), device=device))
+        if cfg.transparent_background:
+            carry += (torch.zeros((p,), dtype=torch.bool, device=device),)
 
     start = 0
     fingerprint = None
@@ -379,12 +400,12 @@ def progressive_render(fs: FlatScene, static: SceneStatic, cfg: RenderConfig,
         if loaded is not None and 0 < loaded.samples_done <= cfg.samples:
             start = loaded.samples_done
             own = slice(start_px, stop_px)
-            carry = (torch.as_tensor(loaded.color[own], device=device),
-                     torch.as_tensor(loaded.alpha[own], device=device))
+            parts = [loaded.color[own], loaded.alpha[own]]
             if cfg.transparent_background:
-                claimed = (loaded.claimed[own] if loaded.claimed is not None
-                           else np.zeros(p, bool))
-                carry = carry + (torch.as_tensor(claimed, device=device),)
+                parts.append(loaded.claimed[own] if loaded.claimed is not None
+                             else np.zeros(p, bool))
+            for c, x in zip(carry, parts):
+                c.copy_(torch.as_tensor(x))
         if preview_path is None:
             preview_path = checkpoint_path + ".preview.png"
         if replicate is not None:
@@ -417,29 +438,29 @@ def progressive_render(fs: FlatScene, static: SceneStatic, cfg: RenderConfig,
     s = start
     last_ckpt = start // checkpoint_every
     while s < cfg.samples:
-        if k > 1:
-            count = min(k, cfg.samples - s)
+        count = min(k, cfg.samples - s)
+        if dpass is not None:
+            # The fold runs in each launch's epilogue, inside "trace".
+            with phase("trace", items=p * count, block=carry):
+                dpass.accumulate(fs, s, count)
+            with phase("accumulate"):
+                pass
+        else:
             out = []  # block= is read when the phase ends
             with phase("trace", items=p * count, block=out):
-                out[:] = batch_fn(fs, s)
-            colors, alphas = out
+                out[:] = (batch_fn(fs, s) if k > 1 else sample_fn(fs, s))
             with phase("accumulate"):
-                if cfg.transparent_background:
-                    carry = _update_claim_batch(carry, colors, alphas, s, count)
+                if k == 1:
+                    fold = (_claim_step if cfg.transparent_background
+                            else _update_mean)
+                    new = fold(carry, *out, s)
                 else:
-                    carry = _update_mean_batch(carry, colors, alphas, s, count)
-            s += count
-        else:
-            out = []
-            with phase("trace", items=p, block=out):
-                out[:] = sample_fn(fs, s)
-            radiance, alpha = out
-            with phase("accumulate"):
-                if cfg.transparent_background:
-                    carry = _claim_step(carry, radiance, alpha, s)
-                else:
-                    carry = _update_mean(carry, radiance, alpha, s)
-            s += 1
+                    fold = (_update_claim_batch if cfg.transparent_background
+                            else _update_mean_batch)
+                    new = fold(carry, *out, s, count)
+                for c, x in zip(carry, new):
+                    c.copy_(x)
+        s += count
         if progress is not None:
             progress(s, cfg.samples)
         if (checkpoint_path is not None and s // checkpoint_every > last_ckpt
