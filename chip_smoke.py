@@ -105,18 +105,25 @@ Phases (any failure raises, and the exit code is then non-zero):
    ``render_distributed``: each rank's launches of the plan, the sweeps,
    the shadow-ray setup and shade counted (> 0) and the plain versions
    counted (none), both ranks' images equal, each image against the main
-   path's (dp bit-equal, asserted; tp's flips counted; each dp rank's
-   sample function a device pass, asserted), then each layout's
-   sample loop timed in the ranks (paths/s, the share of it in the
-   collective helpers on a synchronized clock, bytes handed to them per
-   sample: two ranks time-sharing one H100, not a scaling figure); (c) the
-   textured quads at tp=2 with the texel pack sharded, bit-equal to the
-   replicated pack and within 1e-5 of the single device; (d) each tp=2
+   path's (dp bit-equal, asserted; tp's flips counted), every rank's
+   sample function a device pass (asserted; a tp rank's chunk steps
+   programs of graph segments cut at its exchanges), each tp rank's image
+   against the same render on the host loop (color and alpha bits and PNG
+   bytes equal, asserted), then each layout's sample loop timed in the
+   ranks (paths/s, the share of it in the collective helpers on a
+   synchronized clock, their calls and bytes per sample: two ranks
+   time-sharing one H100, not a scaling figure) and, for tp, the loop's
+   graphs, segments per chunk step and capture seconds, paths/s through
+   the device pass and the host loop in turns, and the device pass's
+   idle split (``replay_split``: busy in replays, idle at launch edges,
+   at segment boundaries, between iterations); (c) the textured quads at
+   tp=2 with the texel pack sharded, bit-equal to the replicated pack, to
+   its host loop and within 1e-5 of the single device; (d) each tp=2
    shard as its rank prepares it (its own tiles): the plan, closest and
    any sweeps against their plain versions bit for bit on the scattered
    chunk (timed, with its bounds), a first bounce's shadow rows and the
    camera chunk a ring hop brings; (e) the launch composition: a 640x480
-   frame at 8 spp in 30,720- and 25,600-pixel launches, planned (every
+   frame at 4 spp in 30,720- and 25,600-pixel launches, planned (every
    closest sweep against the walk of every tile in order on the same rays:
    each differing winner a tie of its truncated t, counted; the differing
    pixels counted) and with every tile walked in order (bit-equal); (f)
@@ -196,15 +203,17 @@ Phases (any failure raises, and the exit code is then non-zero):
    and bvh; (e) the device scan: a load graph per launch shape, the loss
    bit-equal and the gradients within ROUTE_REL_L2, grad-paths/s in 3
    turns against the host scan.
-Every kernel's bound (the least time the card could take for the work of
-the timed launch: its operations at the float32 peak or its bytes at the
-HBM rate, whichever is larger) is computed from that launch's inputs.
+Each phase logs its seconds.  Every kernel's bound (the least time the
+card could take for the work of the timed launch: its operations at the
+float32 peak or its bytes at the HBM rate, whichever is larger) is
+computed from that launch's inputs.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -294,6 +303,17 @@ CUDA_FUNCTIONS = {
 GATE_OPS = 28
 SUN_OPS = 200
 SHADE_OPS = 600
+
+
+_PHASE_T0 = [time.perf_counter()]
+
+
+def phase_time(n: int):
+    """Log the seconds since the last phase ended (the script's start for
+    the first): the run has a time limit, and each phase its share."""
+    now = time.perf_counter()
+    log(f"phase {n} done: {now - _PHASE_T0[0]:.1f} s")
+    _PHASE_T0[0] = now
 
 
 def log(msg):
@@ -1708,6 +1728,9 @@ DIST_KERNELS = ("exact_gate", "closest", "any", "sun", "shade")
 TEX_SHAPE = dict(width=64, height=64, samples=2, bounces=2)
 TEX_KERNELS = ("closest_small", "shade")
 DIST_TIMEOUT = 300
+# The routes of a tp layout's sample loop in turns: the device pass, and
+# the host loop it replaces.
+DIST_TURNS = ("device", "host", "host", "device")
 # What no rank may call on the card: the plain versions of every kernel of
 # the path, and the device tile pack (each shard brings its own tiles).
 PLAIN_VERSIONS = (("intersect_cuda", "_sweep"), ("intersect_cuda", "_small_sweep"),
@@ -1727,9 +1750,11 @@ GRAD_TARGET_SEED = 11
 GRAD_REPS = 3
 # The launch-composition check: a 640x480 frame traced in the single
 # device's 30,720-pixel launches and in the 25,600-pixel launches of four
-# ray-parallel ranks (ptx_torch.parallel.dist.launch_pixels).
+# ray-parallel ranks (ptx_torch.parallel.dist.launch_pixels), at four
+# samples (eight took a share of the script's time that phase 12's tp
+# checks now need).
 COMPOSITION_LAUNCHES = (FRAME_RAYS, 25600)
-COMPOSITION_SAMPLES = 8
+COMPOSITION_SAMPLES = 4
 
 
 def _free_port() -> int:
@@ -1758,20 +1783,62 @@ def count_plain_calls():
     return calls
 
 
-def run_layout(fs, static, cfg, plan, comm, dev, timed=(True,), plain=None):
+@contextlib.contextmanager
+def host_loop():
+    """Within it, ``shade_cuda.make_pallas_integrator`` gives the fused
+    step on the host loop (``_eager_integrator``, every kernel launched
+    eagerly, one live-count sync per iteration), the reference of a rank's
+    device pass."""
+    from ptx_torch.kernels import shade_cuda
+
+    make = shade_cuda.make_pallas_integrator
+
+    def eager(static, cfg, closest, any_hit, live_sync=None, tex_shard=None):
+        step = shade_cuda.make_pallas_step(static, cfg, closest, any_hit,
+                                           tex_shard=tex_shard)
+        return shade_cuda._eager_integrator(static, cfg, step, live_sync)
+
+    shade_cuda.make_pallas_integrator = eager
+    try:
+        yield
+    finally:
+        shade_cuda.make_pallas_integrator = make
+
+
+def loop_programs(loop) -> dict:
+    """A device loop's graphs: ``graphs`` captured, ``capture_s``, and
+    ``segments``, the sorted segment counts of its chunk steps' programs
+    (one per step on a rank without exchanges)."""
+    sizes = {len(segments) for launch in loop._launches.values()
+             for key, segments in launch.graphs.items()
+             if isinstance(key[0], int)}
+    return dict(graphs=loop.captures, capture_s=loop.capture_seconds,
+                segments=sorted(sizes))
+
+
+def run_layout(fs, static, cfg, plan, comm, dev, timed=(True,), plain=None,
+               host=False, turns=(), split=False):
     """One layout on this rank, as phase 12's ranks and
     ``multirank_check.py`` run it: ``render_distributed`` with the launch
     counters and the plain-version counters ``plain``
     (:func:`count_plain_calls`) set to 0 just before and read just after;
-    then, on the scene prepared again, the sample loop alone once per entry
-    of ``timed``, each pass from a barrier and the collective helpers'
-    clock on where the entry is True.  Returns a dict: the result, the
-    launches, the plain calls, each pass's wall seconds, the samples per
-    launch and the helpers' seconds, calls and bytes per sample in the last
-    pass."""
+    with ``host``, the same render on the host loop (:func:`host_loop`:
+    the same launches); then, on the scene prepared again, the sample loop
+    alone: with ``turns`` (routes, "device" or "host"), one warm pass of
+    each route, then a pass per entry; then once per entry of ``timed``
+    through the rank's own sample function, the collective helpers' clock
+    on where the entry is True; with ``split`` (a card), one pass under
+    :func:`replay_split`.  Each pass starts from a barrier.  Returns a
+    dict: the result (and ``host_result``), the launches, the plain calls,
+    each timed pass's wall seconds (``walls``; ``turn_walls``: (route,
+    seconds) in turns), the samples per launch, the helpers' seconds,
+    calls and bytes per sample in the last timed pass, the sample
+    function's class (``route``), its loop's graphs (:func:`loop_programs`)
+    and the split."""
     import torch
 
     from ptx_torch import render as R
+    from ptx_torch.integrator.graphs import DevicePass
     from ptx_torch.kernels import _build
     from ptx_torch.parallel import dist as pdist
     from ptx_torch.parallel import mesh as pmesh
@@ -1789,30 +1856,58 @@ def run_layout(fs, static, cfg, plan, comm, dev, timed=(True,), plain=None):
                                    comm=comm, device=dev)
     sync()
     out = dict(result=res, launches=dict(_build.LAUNCHES),
-               plain_calls=dict(plain or {}), walls=[])
-    if not timed:
+               plain_calls=dict(plain or {}), walls=[], turn_walls=[])
+    if host:
+        with host_loop():
+            out["host_result"] = pdist.render_distributed(
+                fs, static, cfg, plan=plan, mesh=mesh, comm=comm, device=dev)
+    if not (timed or turns or split):
         return out
     fs_l, st_l = pdist.prepare_scene(fs, static, cfg, plan, mesh, dev)
     k = R.resolve_samples_per_launch(cfg, ways=pdist.ray_ways(plan, comm))
-    fn = pdist.make_distributed_sample_fn(st_l, cfg, mesh, plan, comm, k=k,
-                                          device=dev)
+
+    def sample_fn():
+        return pdist.make_distributed_sample_fn(st_l, cfg, mesh, plan, comm,
+                                                k=k, device=dev)
+
+    fns = {"device": sample_fn()}
+    if "host" in turns:
+        with host_loop():
+            fns["host"] = sample_fn()
     rep = multihost.replicator(mesh, comm)
     pixels = pdist.pixel_range(mesh, comm, cfg.width * cfg.height)
-    for clock in timed:
-        rep.barrier()
-        sync()
+
+    def run_pass(fn, clock=False, barrier=True):
+        if barrier:
+            rep.barrier()
+            sync()
         pdist.STATS.reset(timed=clock)
         t0 = time.perf_counter()
         R.progressive_render(fs_l, st_l, cfg, fn if k == 1 else None,
                              fn if k > 1 else None, k, dev, replicate=rep,
                              pixels=pixels)
         sync()
-        out["walls"].append(time.perf_counter() - t0)
+        return time.perf_counter() - t0
+
+    if turns:
+        for route in fns:
+            run_pass(fns[route])
+        out["turn_walls"] = [(route, run_pass(fns[route])) for route in turns]
+    for clock in timed:
+        out["walls"].append(run_pass(fns["device"], clock))
     st = pdist.STATS
     out.update(k=k, collective_s=st.seconds, collective_calls=st.calls,
                bytes_per_sample=st.bytes / cfg.samples,
-               route=type(fn).__name__)
+               calls_per_sample=st.calls / cfg.samples,
+               route=type(fns["device"]).__name__)
     pdist.STATS.reset(timed=False)
+    if isinstance(fns["device"], DevicePass):
+        out["graphs"] = loop_programs(fns["device"].loop)
+    if split and dev.type == "cuda":
+        rep.barrier()
+        sync()
+        out["split"] = replay_split(lambda: run_pass(fns["device"],
+                                                     barrier=False))
     return out
 
 
@@ -1977,21 +2072,27 @@ def rank_worker(port: int, rank: int, out: str, spec: dict) -> int:
     report = {}
 
     def save(name, run, **extra):
-        res = run["result"]
-        np.savez(os.path.join(out, f"{name}.rank{rank}.npz"), color=res.color,
-                 alpha=res.alpha, image=res.image)
+        for key, tag in (("result", ""), ("host_result", ".host")):
+            if key in run:
+                res = run[key]
+                np.savez(os.path.join(out, f"{name}{tag}.rank{rank}.npz"),
+                         color=res.color, alpha=res.alpha, image=res.image)
         report[name] = dict(launches=run["launches"],
-                            plain_calls=run["plain_calls"], **extra)
+                            plain_calls=run["plain_calls"],
+                            route=run.get("route"), graphs=run.get("graphs"),
+                            **extra)
 
     cfg = R.RenderConfig(**spec["shape"])
     fs, static = R.load_scene(spec["scene"])
     for name, dp, tp, comm in DIST_LAYOUTS:
         run = run_layout(fs, static, cfg, pmesh.Plan(dp, tp, tp > 1), comm,
-                         dev, plain=plain)
+                         dev, plain=plain, host=tp > 1,
+                         turns=DIST_TURNS if tp > 1 else (), split=tp > 1)
         save(name, run, wall_s=run["walls"][0], collective_s=run["collective_s"],
              collective_calls=run["collective_calls"],
+             calls_per_sample=run["calls_per_sample"],
              bytes_per_sample=run["bytes_per_sample"], k=run["k"],
-             route=run["route"])
+             turn_walls=run["turn_walls"], split=run.get("split"))
 
     gcfg = grad_config(spec["grad_shape"])
     target = grad_target(gcfg, dev)
@@ -2012,7 +2113,7 @@ def rank_worker(port: int, rank: int, out: str, spec: dict) -> int:
         save(f"tex_{'sharded' if shard else 'replicated'}",
              run_layout(tex_fs, tex_static, tex_cfg,
                         pmesh.Plan(1, 2, True, shard), "reduce", dev,
-                        timed=(), plain=plain))
+                        timed=(), plain=plain, host=shard))
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
         json.dump(report, f)
     multihost.shutdown()
@@ -2300,6 +2401,32 @@ def check_train_step(dev, reports, tmp, fs, static, cfg, single_image, smi):
                 f"({SHARED}; {smi})")
 
 
+def hold_host_loop(name, reports, image, tmp):
+    """Each rank's image of run ``name`` (its sample pass) against the same
+    render on the host loop (``<name>.host``): color and alpha bits and PNG
+    bytes equal."""
+    for r in range(len(reports)):
+        results_bit_equal(f"{name} rank {r}", image(name, r),
+                          image(f"{name}.host", r), tmp)
+    log(f"  {name}: every rank's image bit-equal to its host loop's (color, "
+        "alpha, PNG bytes)")
+
+
+def log_route(tag, t, paths, smi, where):
+    """A rank's sample pass: its loop's graphs and segments per chunk step,
+    paths/s through each route in turns, and the split of a pass."""
+    g = t.get("graphs")
+    if g:
+        log(f"  {tag}: {g['graphs']} graphs captured in {g['capture_s']:.3f} "
+            f"s, segments per chunk step {g['segments']}")
+    if t.get("turn_walls"):
+        log(f"  {tag}: paths/s in turns " + ", ".join(
+            f"{route} {paths / w:,.0f}" for route, w in t["turn_walls"])
+            + f" ({where}; {smi})")
+    if t.get("split"):
+        log(f"  {tag}: device pass {split_line(t['split'])} ({where}; {smi})")
+
+
 def check_distributed(dev, single, cfg, smi, scene=SLICE_SCENE,
                       tex_shape=TEX_SHAPE, grad_shape=GRAD_SHAPE):
     """Phase 12: (a) one NCCL rank through torchrun and the CLI; (b) two
@@ -2411,28 +2538,33 @@ def check_distributed(dev, single, cfg, smi, scene=SLICE_SCENE,
                 f"(|dcolor|<={COLOR_ATOL} on {color_share:.5f}, alpha equal on "
                 f"{alpha_share:.5f}, uint8 within 1 on {image_share:.5f})")
             # Each dp rank traces whole launches of the single device's
-            # (the same pixels, samples per launch and block composition),
-            # on the card through the device pass (a tp rank: the host loop).
+            # (the same pixels, samples per launch and block composition).
             if tp == 1 and not exact:
                 raise AssertionError(f"{name}: ray-parallel image not bit-equal "
                                      "to the single device")
+            # Every rank takes the device pass on the card (a tp rank's
+            # chunk steps cut into segments at its exchanges).
             routes = {rep[name]["route"] for rep in reports}
             log(f"  {name}: the ranks' sample pass {sorted(routes)}")
-            if tp == 1 and dev.type == "cuda" and routes != {"DevicePass"}:
-                raise AssertionError(f"{name}: the dp ranks did not take the "
+            if dev.type == "cuda" and routes != {"DevicePass"}:
+                raise AssertionError(f"{name}: the ranks did not take the "
                                      f"device pass ({routes})")
             if min(color_share, alpha_share, image_share) < MIN_PIXEL_SHARE:
                 raise AssertionError(f"{name} disagrees with the single-device "
                                      "image")
+            if tp > 1:
+                hold_host_loop(name, reports, image, tmp)
             for r, rep in enumerate(reports):
                 t = rep[name]
                 log(f"  rank {r} {name}: sample loop {t['wall_s']:.3f} s = "
                     f"{paths / t['wall_s']:,.0f} paths/s, collectives "
                     f"{t['collective_s']:.3f} s = "
                     f"{100 * t['collective_s'] / t['wall_s']:.1f} % of it in "
-                    f"{t['collective_calls']} calls, "
+                    f"{t['collective_calls']} calls "
+                    f"({t['calls_per_sample']:.1f} per sample), "
                     f"{t['bytes_per_sample']:,.0f} bytes per sample, "
                     f"{t['k']} sample(s) per launch ({SHARED}; {smi})")
+                log_route(f"rank {r} {name}", t, paths, smi, SHARED)
 
         check_train_step(dev, reports, tmp, fs1, static1, gcfg, single_image,
                          smi)
@@ -2440,6 +2572,7 @@ def check_distributed(dev, single, cfg, smi, scene=SLICE_SCENE,
 
         rep_img = check_ranks("tex_replicated", TEX_KERNELS)
         shd_img = check_ranks("tex_sharded", TEX_KERNELS)
+        hold_host_loop("tex_sharded", reports, image, tmp)
         if not (np.array_equal(rep_img.color, shd_img.color)
                 and np.array_equal(rep_img.alpha, shd_img.alpha)):
             raise AssertionError("sharded textures differ from the replicated "
@@ -2529,23 +2662,28 @@ def loop_render(integrate, fs, static, cfg, dev, outs=None):
 
 def replay_split(run) -> dict:
     """``run()`` (a sample loop on a device loop) with CUDA events around
-    every graph replay and a mark around each ``DeviceLoop._loop`` call (a
-    launch's bounce iterations), then where the device sat outside the
-    replays: ``wall_ms`` (a start event after a synchronize to an end event
-    after ``run`` returned), ``busy_ms`` (the union of the replay spans),
-    ``edge_idle_ms`` (the gaps at a launch edge: before the first replay,
-    after the last, and every gap that is not between two replays of one
-    ``_loop`` call) and ``iteration_idle_ms`` (the gaps between two replays
-    of one ``_loop`` call).  Eager kernels (a host loop's edges, the live
-    counts' sums and copies) count as idle here.  The methods patched exist
-    on every tree since the device loop's, so ``ab_trees.py`` runs this on
-    earlier commits too."""
+    every graph replay, a mark around each ``DeviceLoop._loop`` call (a
+    launch's bounce iterations) and one around each program replay
+    (``GraphRunner._run_program``: a unit's segments with the exchanges
+    between them), then where the device sat outside the replays:
+    ``wall_ms`` (a start event after a synchronize to an end event after
+    ``run`` returned), ``busy_ms`` (the union of the replay spans),
+    ``boundary_idle_ms`` (the gaps between two segments of one program: a
+    tp rank's exchanges), ``iteration_idle_ms`` (the other gaps between two
+    replays of one ``_loop`` call), and ``edge_idle_ms`` (the gaps at a
+    launch edge: before the first replay, after the last, and every gap
+    outside a ``_loop`` call).  Eager kernels (a host loop's edges, the
+    live counts' sums and copies, NCCL's collectives) count as idle here.
+    The methods patched exist on every tree since the device loop's
+    (``_run_program`` since the segments': older trees have no boundary),
+    so ``ab_trees.py`` runs this on earlier commits too."""
     import torch
 
     from ptx_torch.integrator import graphs as G
 
-    spans, loops = [], []
+    spans, loops, programs = [], [], []
     replay, loop = G.GraphRunner._replay, G.DeviceLoop._loop
+    program = getattr(G.GraphRunner, "_run_program", None)
 
     def timed_replay(self, graph, tally):
         start = torch.cuda.Event(enable_timing=True)
@@ -2555,17 +2693,22 @@ def replay_split(run) -> dict:
         end.record()
         spans.append((start, end))
 
-    def marked_loop(self, *args, **kwargs):
-        first = len(spans)
-        try:
-            return loop(self, *args, **kwargs)
-        finally:
-            loops.append((first, len(spans)))
+    def marked(fn, marks):
+        def call(self, *args, **kwargs):
+            first = len(spans)
+            try:
+                return fn(self, *args, **kwargs)
+            finally:
+                marks.append((first, len(spans)))
+        return call
 
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
-    G.GraphRunner._replay, G.DeviceLoop._loop = timed_replay, marked_loop
+    G.GraphRunner._replay = timed_replay
+    G.DeviceLoop._loop = marked(loop, loops)
+    if program is not None:
+        G.GraphRunner._run_program = marked(program, programs)
     try:
         t0.record()
         run()
@@ -2573,23 +2716,32 @@ def replay_split(run) -> dict:
         t1.synchronize()
     finally:
         G.GraphRunner._replay, G.DeviceLoop._loop = replay, loop
+        if program is not None:
+            G.GraphRunner._run_program = program
     if not spans:
         raise AssertionError("the sample loop replayed no graph")
     at = [(t0.elapsed_time(a), t0.elapsed_time(b)) for a, b in spans]
-    inner = set()
-    for first, stop in loops:
-        inner.update(range(first, stop - 1))  # gap i: replay i to i + 1
+
+    def gaps(marks):  # gap i: from replay i to replay i + 1
+        return {i for first, stop in marks for i in range(first, stop - 1)}
+
+    inner, boundary = gaps(loops), gaps(programs)
     edge = at[0][0] + (t0.elapsed_time(t1) - at[-1][1])
-    iteration = 0.0
+    iteration = cut = 0.0
     for i in range(len(at) - 1):
         gap = at[i + 1][0] - at[i][1]
-        if i in inner:
+        if i in boundary:
+            cut += gap
+        elif i in inner:
             iteration += gap
         else:
             edge += gap
     return dict(wall_ms=t0.elapsed_time(t1), busy_ms=sum(b - a for a, b in at),
-                edge_idle_ms=edge, iteration_idle_ms=iteration,
-                replays=len(at), launches=len(loops))
+                edge_idle_ms=edge, boundary_idle_ms=cut,
+                iteration_idle_ms=iteration, replays=len(at),
+                launches=len(loops),
+                segments=sum(stop - first for first, stop in programs),
+                programs=len(programs))
 
 
 def split_line(split) -> str:
@@ -2598,8 +2750,10 @@ def split_line(split) -> str:
     return (f"busy in replays {split['busy_ms']:.3f} of {w:.3f} ms "
             f"({100 * split['busy_ms'] / w:.1f} %); idle at launch edges "
             f"{split['edge_idle_ms']:.3f} ms "
-            f"({100 * split['edge_idle_ms'] / w:.1f} %), between iterations "
-            f"{split['iteration_idle_ms']:.3f} ms "
+            f"({100 * split['edge_idle_ms'] / w:.1f} %), at segment "
+            f"boundaries {split['boundary_idle_ms']:.3f} ms "
+            f"({100 * split['boundary_idle_ms'] / w:.1f} %), between "
+            f"iterations {split['iteration_idle_ms']:.3f} ms "
             f"({100 * split['iteration_idle_ms'] / w:.1f} %); "
             f"{split['replays']} replays, {split['launches']} launches")
 
@@ -3519,6 +3673,7 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s), python {sys.version.split()[0]}")
 
+    phase_time(1)
     # 2. build
     t0 = time.perf_counter()
     _build.load()
@@ -3526,6 +3681,7 @@ def main() -> int:
     print(_build.build_log, file=sys.stderr)
     check_rcp(dev)
 
+    phase_time(2)
     # 3. traversal kernels vs plain versions at the slice's shapes
     cfg = R.RenderConfig(width=256, height=256, samples=4, bounces=4)
     t0 = time.perf_counter()
@@ -3572,9 +3728,11 @@ def main() -> int:
     check_above_frustum(cfg, dev)
     torch.cuda.empty_cache()
 
+    phase_time(3)
     # 4. sun and shade kernels vs plain versions
     errs.update(check_shade(fs, static, cfg, dev, timing, reps=5))
 
+    phase_time(4)
     # 5. main path: counts reset just before, read just after
     if R.resolve_shader(cfg) != "pallas":
         raise AssertionError("the default shader does not resolve to the kernels")
@@ -3649,6 +3807,7 @@ def main() -> int:
     if min(color_share, alpha_share, image_share) < MIN_PIXEL_SHARE:
         raise AssertionError("kernel path image disagrees with the brute path")
 
+    phase_time(5)
     # 6. small-scene path: synthetic:2000 (no sun of its own) lit by the
     # arch scene's sun, so its shadow rays take the small any sweep.
     fs_sn, static_sn = R.load_scene(SMALL_SCENE)
@@ -3675,6 +3834,7 @@ def main() -> int:
     if not np.isfinite(r_k.color).all() or r_k.image[..., :3].max() == 0:
         raise AssertionError("small-scene image is black or not finite")
 
+    phase_time(6)
     # 7. CLI
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "ptx_torch_smoke.png")
@@ -3687,6 +3847,7 @@ def main() -> int:
         check_png(out, 128, 96)
     log("cli: wrote a 128x96 PNG")
 
+    phase_time(7)
     # 8. the stats sweep: the 32,768 scattered rays of phase 3 (timed), then
     # the bench roofline's camera rays on its two scenes.
     from ptx_torch import bench
@@ -3700,6 +3861,7 @@ def main() -> int:
             *bench.roofline_rays(fs_r, n_rays), None, 0))
         del fs_r
 
+    phase_time(8)
     # 9. the bench path: counts reset just before, read just after
     _build.reset_launches()
     result = bench.run_bench(extras=BENCH_EXTRAS, device=dev)
@@ -3714,15 +3876,18 @@ def main() -> int:
             raise AssertionError(f"bench row {name}: {row}")
     log(json.dumps(result))
 
+    phase_time(9)
     # 10. the differentiable path: counts reset just before each route's
     # run, read just after.
     check_diff(dev, smi=smi)
 
+    phase_time(10)
     # 11. the bvh path: counts reset just before each path's run, read just
     # after.
     bvh_launches = check_bvh_path(fs, static, fs_np, static_np, cfg, dev, smi,
                                   scattered, timing, errs)
 
+    phase_time(11)
     # 12. the multi-rank path: counts reset inside each rank just before
     # each layout's render, read just after; then the kernels on each tp=2
     # shard against their plain versions, and the launch composition.
@@ -3730,18 +3895,22 @@ def main() -> int:
     check_shards(fs, static, fs_np, static_np, cfg, dev)
     check_composition(fs_np, static_np, dev)
 
+    phase_time(12)
     # 13. the device loop: counts reset just before each launch's run, read
     # just after.
     check_device_loop(fs_np, static_np, cfg, dev, smi)
 
+    phase_time(13)
     # 14. the device scan: counts reset just before each launch's value and
     # gradient, read just after.
     check_device_scan(dev, smi)
 
+    phase_time(14)
     # 15. the device pass: counts reset just before each render and each
     # sample, read just after.
     check_device_pass(fs_np, static_np, cfg, dev, smi)
 
+    phase_time(15)
     if "jax" in sys.modules or "ptx" in sys.modules:
         raise AssertionError("the port imported jax or the JAX package")
 

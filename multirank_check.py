@@ -20,9 +20,17 @@ launch size as ``rays_per_batch``; the closest sweep breaks ties by each
 block's plan, so other launches give other blocks,
 ``chip_smoke.check_composition``): a dp-only layout bit-equal, the others
 within |dcolor| <= 1e-4 on >= 99 % of pixels and alpha equal on >= 99 %,
-the differing pixels counted; then each layout's sample loop timed twice
-from a barrier: once plain (paths/s), once with the collective helpers'
-clock on (their share of the wall, bytes per sample).  Rank 0 prints one
+the differing pixels counted; every rank's sample pass a device pass
+(``integrator.graphs.DevicePass``: a tp rank's chunk steps are programs
+of graph segments cut at its exchanges), and a tp rank's image bit-equal
+to the same render on the host loop; then each layout's sample loop from
+a barrier: the device pass and the host loop in turns (paths/s per rank,
+after one warm pass of each), then once plain (paths/s), once with the
+collective helpers' clock on (their share of the wall, calls and bytes
+per sample), and once under ``chip_smoke.replay_split`` (the busy share in
+graph replays, the idle at launch edges, at segment boundaries and
+between iterations), with the loop's graphs and segments per chunk
+step.  Rank 0 prints one
 line per layout and, last, one JSON object; any failed check raises, and
 the exit code is then non-zero.  ``--device cpu`` runs the same on the CPU
 over gloo (a rehearsal: plain versions, no launches).
@@ -228,14 +236,25 @@ def main(argv=None) -> int:
     for dp, tp, comm in layouts(world):
         plan = pmesh.Plan(dp, tp, tp > 1)
         run = smoke.run_layout(fs, static, cfg, plan, comm, dev,
-                               timed=(False, True), plain=plain)
+                               timed=(False, True), plain=plain, host=tp > 1,
+                               turns=smoke.DIST_TURNS, split=cuda)
         res = run["result"]
+        host = run.get("host_result")
         mine = dict(rank=rank,
                     launches={k: run["launches"][k] for k in smoke.DIST_KERNELS},
                     plain_calls=run["plain_calls"], wall_s=run["walls"][0],
                     timed_wall_s=run["walls"][1], collective_s=run["collective_s"],
                     collective_calls=run["collective_calls"],
+                    calls_per_sample=run["calls_per_sample"],
                     bytes_per_sample=run["bytes_per_sample"], k=run["k"],
+                    route=run["route"], graphs=run.get("graphs"),
+                    turn_walls=run["turn_walls"], split=run.get("split"),
+                    host_equal=host is None or (
+                        np.array_equal(host.color.view(np.uint32),
+                                       res.color.view(np.uint32))
+                        and np.array_equal(host.alpha.view(np.uint32),
+                                           res.alpha.view(np.uint32))
+                        and np.array_equal(host.image, res.image)),
                     color=res.color, alpha=res.alpha)
         every = [None] * world
         dist.all_gather_object(every, mine)
@@ -252,6 +271,12 @@ def main(argv=None) -> int:
             if not (np.array_equal(r["color"], res.color)
                     and np.array_equal(r["alpha"], res.alpha)):
                 raise AssertionError(f"{name}: rank {r['rank']}'s image differs")
+            if cuda and r["route"] != "DevicePass":
+                raise AssertionError(f"{name}: rank {r['rank']} took "
+                                     f"{r['route']}, not the device pass")
+            if not r["host_equal"]:
+                raise AssertionError(f"{name}: rank {r['rank']}'s image differs "
+                                     "from its host loop's")
         single = reference(run["k"], pdist.launch_pixels(plan, comm,
                                                          cfg.width * cfg.height))
         d = np.abs(res.color - single.color).max(-1)
@@ -272,7 +297,12 @@ def main(argv=None) -> int:
             collective_share=[r["collective_s"] / r["timed_wall_s"] for r in every],
             bytes_per_sample=[r["bytes_per_sample"] for r in every],
             samples_per_launch=every[0]["k"],
-            launches=[r["launches"] for r in every])
+            launches=[r["launches"] for r in every],
+            route=every[0]["route"], graphs=[r["graphs"] for r in every],
+            calls_per_sample=[r["calls_per_sample"] for r in every],
+            turns=[[(route, paths / w) for route, w in r["turn_walls"]]
+                   for r in every],
+            split=[r["split"] for r in every])
         results.append(row)
         log(f"{name}: {row['paths_per_s']:,.0f} paths/s "
             f"({row['speedup']:.2f}x one card), bit-equal {exact}, "
@@ -282,6 +312,14 @@ def main(argv=None) -> int:
             f"of each rank's timed loop, "
             f"{row['bytes_per_sample'][0]:,.0f} bytes per sample per rank "
             f"({cards[0]})")
+        log(f"  {name}: route {row['route']}"
+            + (", bit-equal to the host loop on every rank" if tp > 1 else "")
+            + f"; collective calls per sample {every[0]['calls_per_sample']:.1f}")
+        for r in every:
+            smoke.log_route(f"rank {r['rank']} {name}", dict(
+                graphs=r["graphs"], turn_walls=r["turn_walls"],
+                split=r["split"]), paths, cards[r["rank"]],
+                "one rank per card, NCCL" if cuda else "gloo on the CPU")
     log(json.dumps({"single_paths_per_s": paths / single_s if rank == 0 else None,
                     "cards": cards, "layouts": results}))
     multihost.shutdown()

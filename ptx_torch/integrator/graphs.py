@@ -41,6 +41,18 @@ a call with another scene's tensors raises, and a failed capture raises.
 On CPU tensors the loop runs the same schedule (buffers, lagged count,
 dead chunks) without capture; the CPU tests hold it against the host loop.
 
+A tp rank's loop is the same program with its exchanges between graphs
+(the counterpart of the collectives inside ``ptx``'s ``shard_map``): each
+collective of a chunk step is an exchange point (:func:`exchange`) where
+the step's capture is cut, so the step is a program of segments -- graph,
+exchange, graph, ... -- replayed in capture order, each exchange run
+eagerly between two replays (enqueued on the stream under NCCL, staged
+through the host under gloo).  The live count is the world's largest
+(``live_sync``, reduced on the device under NCCL) and still read one
+iteration late, so every rank runs the same iterations, chunk steps and
+exchanges in the same order.  A step without exchanges is one segment:
+the one-card and dp routes' graphs.
+
 A call ``(fs, pixel_ids, sample_ids)`` copies the ids into the wavefront,
 replays the shape's load graph (camera rays and fresh lanes,
 ``wavefront.load_initial_state``), runs the loop and returns the outputs
@@ -68,72 +80,161 @@ from ptx_torch.kernels import _build, shade_cuda, sorting
 from ptx_torch.scene.flatten import FlatScene, SceneStatic
 
 
+# The runner whose program capture :func:`exchange` cuts (None: an exchange
+# runs eagerly).
+_CUTTER = None
+
+
+def exchange(op, src, dst):
+    """An exchange point of a device program: ``op(src, dst)``, a collective
+    that reads ``src`` and writes ``dst`` in place (``src`` may be ``dst``).
+
+    It runs eagerly, unless a :class:`GraphRunner` is capturing a program
+    (:meth:`GraphRunner._program`): then the graph captured so far ends and
+    is replayed, ``op`` runs, and the next graph begins, and every later run
+    of the program replays the graph, runs ``op`` on the same two tensors,
+    replays the next graph, and so on.  So ``src`` and ``dst`` must be made
+    inside the capture (they then sit in the graph pool, and the program
+    holds them at their addresses) or outlive the program."""
+    if _CUTTER is None:
+        op(src, dst)
+    else:
+        _CUTTER._cut(op, src, dst)
+
+
 class GraphRunner:
     """The CUDA graphs of a device program (:class:`DeviceLoop`, and
     ``ptx_torch.diff.graphs.DeviceScan``): captured into one memory pool on
     a stream of their own, each with the kernel launches its capture
     counted, and replayed.
 
+    A unit of work that holds exchanges (:func:`exchange`: a tp rank's
+    collectives) is a program of segments, one graph each, cut at its
+    exchanges; the exchanges run between the replays, on the current
+    stream.  A unit without one is a program of one graph.
+
     Read by ``chip_smoke.py``: ``captures`` and ``capture_seconds`` (graphs
-    captured so far, host seconds spent capturing them),
-    :meth:`pool_bytes`, and ``replay_events``: set it to a list and each
-    replay appends its (start, end) CUDA events."""
+    captured so far, host seconds spent capturing them, the replays and
+    exchanges run meanwhile included), :meth:`pool_bytes`, and
+    ``replay_events``: set it to a list and each replay appends its
+    (start, end) CUDA events."""
 
     def __init__(self):
         self._pool = None
         self._stream = None
+        self._outer = None  # the stream the program runs on
+        self._open = None  # the graph being captured, its launches before
+        self._segments = None  # the segments of the program being captured
         self.captures = 0
         self.capture_seconds = 0.0
         self.replay_events: Optional[List[Tuple]] = None
 
-    def _graph(self, fn):
-        """``(graph, tally, fn())``: ``fn``'s work captured into a CUDA
-        graph in the pool on the runner's stream, and the launches the
-        wrappers counted meanwhile (taken back out of ``_build.LAUNCHES``:
-        a capture launches nothing).  Raises if the capture fails.
+    def _record(self, fn, cuts: bool):
+        """``(segments, fn())``: ``fn``'s work captured into CUDA graphs in
+        the pool on the runner's stream, as ``[graph, tally, exchange]``
+        segments (``tally``: the launches the wrappers counted meanwhile,
+        taken back out of ``_build.LAUNCHES``: a capture launches nothing;
+        ``exchange``: the ``(op, src, dst)`` that follows the segment, None
+        for the last).  Without ``cuts`` an exchange inside ``fn`` runs in
+        the capture (and a collective there fails it): one segment.  Raises
+        if a capture fails.
 
         The garbage collector is off during the capture: a collection
         there may free another runner's graphs and memory pool, and the
         CUDA calls that destroy them invalidate the capture."""
+        global _CUTTER
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
             self._stream = torch.cuda.Stream()
-        before = dict(_build.LAUNCHES)
-        graph = torch.cuda.CUDAGraph()
+        self._outer = torch.cuda.current_stream()
+        self._segments = []
         t0 = time.perf_counter()
         collecting = gc.isenabled()
         gc.disable()
         try:
             with torch.cuda.stream(self._stream):
-                graph.capture_begin(self._pool)
+                self._begin_graph()
+                _CUTTER = self if cuts else None
                 try:
                     result = fn()
                 finally:
-                    graph.capture_end()
+                    _CUTTER = None
+                    if self._open is not None:
+                        self._end_graph()
         finally:
             if collecting:
                 gc.enable()
+            self.capture_seconds += time.perf_counter() - t0
+            segments, self._segments = self._segments, None
+        return segments, result
+
+    def _begin_graph(self):
+        graph = torch.cuda.CUDAGraph()
+        self._open = (graph, dict(_build.LAUNCHES))
+        # Thread-local: an unsafe call of this thread (a sync, an
+        # allocation outside the pool) fails the capture, while another
+        # thread's (NCCL's watchdog polls its events) does not.
+        graph.capture_begin(self._pool, capture_error_mode="thread_local")
+
+    def _end_graph(self):
+        """End the open capture; its segment joins the program."""
+        (graph, before), self._open = self._open, None
+        try:
+            graph.capture_end()
+        finally:
             tally = {k: n - before[k] for k, n in _build.LAUNCHES.items()
                      if n != before[k]}
             _build.LAUNCHES.update(before)
         self.captures += 1
-        self.capture_seconds += time.perf_counter() - t0
+        self._segments.append([graph, tally, None])
+
+    def _cut(self, op, src, dst):
+        """At an exchange inside a program's capture: end the segment,
+        replay it, run the exchange on the outer stream, begin the next."""
+        self._end_graph()
+        segment = self._segments[-1]
+        segment[2] = (op, src, dst)
+        with torch.cuda.stream(self._outer):
+            self._replay(segment[0], segment[1])
+            op(src, dst)
+        self._begin_graph()
+
+    def _graph(self, fn):
+        """``(graph, tally, fn())``: ``fn``'s work captured as one graph
+        (:meth:`_record` without cuts), not run."""
+        ((graph, tally, _),), result = self._record(fn, cuts=False)
         return graph, tally, result
 
+    def _program(self, fn):
+        """``fn``'s work captured as a program cut at its exchanges, and run
+        once meanwhile (each segment replayed at its cut, the last one after
+        the capture); returns its segments."""
+        segments, _ = self._record(fn, cuts=True)
+        self._replay(*segments[-1][:2])
+        return segments
+
     def _run(self, graphs: dict, key, fn, cuda: bool, warm=None):
-        """``fn()`` on the CPU; on a CUDA device the replay of
-        ``graphs[key]``, captured on first use after ``warm()`` (an eager
-        run of the same work, so that what a first use sets up happens
-        outside capture)."""
+        """``fn()`` on the CPU; on a CUDA device the program
+        ``graphs[key]``, captured (and so run) on first use after ``warm()``
+        (an eager run of the same work, so that what a first use sets up
+        happens outside capture), replayed after that."""
         if not cuda:
             fn()
             return
-        entry = graphs.get(key)
-        if entry is None:
+        segments = graphs.get(key)
+        if segments is None:
             if warm is not None:
                 warm()
-            entry = graphs[key] = self._graph(fn)[:2]
-        self._replay(*entry)
+            graphs[key] = self._program(fn)
+        else:
+            self._run_program(segments)
+
+    def _run_program(self, segments):
+        """Replay a program: each segment, then its exchange."""
+        for graph, tally, ex in segments:
+            self._replay(graph, tally)
+            if ex is not None:
+                ex[0](ex[1], ex[2])
 
     def _replay(self, graph, tally):
         """Replay ``graph`` and count its capture's launches."""
@@ -212,13 +313,17 @@ class _Launch:
 class DeviceLoop(GraphRunner):
     """The fused integrator ``(fs, pixel_ids, sample_ids) -> (radiance
     [R, 3], alpha [R])`` of one scene on the device loop (module
-    docstring).  ``step`` is ``shade_cuda.make_pallas_step``'s bounce.
+    docstring).  ``step`` is ``shade_cuda.make_pallas_step``'s bounce;
+    ``live_sync`` (a tp rank's, ``parallel.dist``) maps this rank's live
+    count, a tensor, to the world's largest on the device.
     Read by ``chip_smoke.py`` as a :class:`GraphRunner`, and its
     :meth:`schedule` (the last call's counts against the host loop's)."""
 
-    def __init__(self, static: SceneStatic, cfg: RenderConfig, step):
+    def __init__(self, static: SceneStatic, cfg: RenderConfig, step,
+                 live_sync=None):
         super().__init__()
         self.static, self.cfg, self.step = static, cfg, step
+        self.live_sync = live_sync
         self.max_iters = max_iterations(static, cfg)
         self.compact = sorting.resolve_compact(static, cfg)
         self._scene = None  # (fs, its tensors' (pointer, shape)) it serves
@@ -284,8 +389,11 @@ class DeviceLoop(GraphRunner):
         """One chunk step and one sort, eagerly, on a copy of the launch's
         first chunk and into new tensors, before the shape's first capture:
         what a kernel or a constant sets up on first use (a module load, a
-        shared-memory opt-in, ``utils.device_constant``) happens outside
-        capture."""
+        shared-memory opt-in, ``utils.device_constant``, a communicator)
+        happens outside capture.  A tp rank's step issues its collectives
+        here too; every rank of the world warms up at the same point, since
+        each makes the same launch shapes in the same order and steps them
+        on the same (world-largest) live counts."""
         sub = RayState(*(x[:launch.chunk].clone() for x in launch.state))
         self.step(fs, 0, sub, self._sun)
         if self.compact:
@@ -315,8 +423,10 @@ class DeviceLoop(GraphRunner):
                 self._run(launch.graphs, (it, ci),
                           lambda ci=ci: self._chunk_step(fs, launch, it, ci),
                           launch.cuda)
-            launch.counts[it + 1].copy_(launch.state.alive.sum(),
-                                        non_blocking=True)
+            live = launch.state.alive.sum()
+            if self.live_sync is not None:
+                live = self.live_sync(live)
+            launch.counts[it + 1].copy_(live, non_blocking=True)
             if launch.cuda:
                 launch.events[it + 1].record()
             steps.append(n_live)

@@ -651,9 +651,10 @@ def inputs_from_arrays(a, device):
 def _eager_integrator(static: SceneStatic, cfg: RenderConfig, step,
                       live_sync: Callable = None):
     """The fused integrator on the host loop (``wavefront.run_forward``,
-    one live-count sync per iteration): the route of a step that holds
-    collectives (multi-rank tp exchanges, ``live_sync``; gloo cannot be
-    captured in a CUDA graph).  ``step``: :func:`make_pallas_step`'s."""
+    one live-count sync per iteration, every kernel launched eagerly): the
+    reference the device loop is held to (``chip_smoke.host_render``, the
+    CPU tests), for one rank or, with ``live_sync``, a tp rank.  ``step``:
+    :func:`make_pallas_step`'s."""
     max_iters = max_iterations(static, cfg)
     do_compact = sorting.resolve_compact(static, cfg)
 
@@ -685,11 +686,11 @@ def make_pallas_integrator(static: SceneStatic, cfg: RenderConfig,
     It runs on the device loop (``ptx_torch.integrator.graphs.DeviceLoop``:
     CUDA graphs of the chunk step, the live count read one iteration late;
     on CPU tensors the same schedule without capture), one integrator per
-    scene.  A step that holds collectives (``live_sync`` or ``tex_shard``:
-    tp ranks) stays on the host loop (:func:`_eager_integrator`)."""
-    step = make_pallas_step(static, cfg, closest, any_hit, tex_shard=tex_shard)
-    if live_sync is not None or tex_shard is not None:
-        return _eager_integrator(static, cfg, step, live_sync)
+    scene.  A tp rank's step holds collectives (the exchanges of
+    ``closest`` / ``any_hit`` and ``tex_shard``'s sums): each is an
+    exchange point (``graphs.exchange``) that cuts its chunk step's graph
+    into segments, and its live counts go through ``live_sync``."""
     from ptx_torch.integrator.graphs import DeviceLoop
 
-    return DeviceLoop(static, cfg, step)
+    step = make_pallas_step(static, cfg, closest, any_hit, tex_shard=tex_shard)
+    return DeviceLoop(static, cfg, step, live_sync)

@@ -10,11 +10,12 @@ the mesh's groups:
   pixels; no per-ray collective.
 * **Scene parallelism** (``tp``): each rank of a ``dp`` row holds one
   triangle shard.  In "reduce" mode the row's ranks hold the same rays and
-  resolve each closest hit by a two-phase min (distance, then the lowest
-  tp index among the winners) and a masked sum of the winner's payload; an
-  occlusion query is a max.  In "ring" mode each rank owns a block of rays
-  and the blocks travel around the row's ring, carrying their running best
-  hit (the ring-attention schedule: 1/tp the rays per rank).
+  resolve each closest hit by one min of a key (the distance's bits, then
+  the tp index: the lowest index among the nearest shards) and one sum of
+  the winner's masked payload; an occlusion query is a max.  In "ring"
+  mode each rank owns a block of rays and the blocks travel around the
+  row's ring, carrying their running best hit (the ring-attention
+  schedule: 1/tp the rays per rank).
 
 Inverse rendering over the ranks (:func:`make_distributed_train_step`):
 each rank takes the value and gradient of its pixel slice through the same
@@ -29,14 +30,23 @@ steps the same chunks; and every choice of path (intersector, compaction,
 shader, launch size) is taken from the same per-shard ``SceneStatic`` and
 the same counts on every rank.
 
+A tp rank renders on the device pass, as a dp rank does
+(``integrator.graphs.DevicePass``): each collective of its bounce step is
+an exchange point (``integrator.graphs.exchange``) that cuts the step's
+CUDA graph into segments, and runs between their replays, on the stream
+(NCCL) or staged through the host (gloo); the live counts are reduced on
+the device and read one iteration late.
+
 The collective helpers (:func:`all_reduce`, :func:`all_gather`,
 :func:`ring_shift`) are the one place that talks to ``torch.distributed``.
-Under gloo with CUDA tensors (ranks sharing one card) they copy each tensor
-to the host and back: gloo's CUDA support covers only some collectives
-(not all-gather, not point-to-point), so every call takes the one staged
-path.  They also
-keep :data:`STATS` (calls, bytes handed over, and, when asked, the wall
-time on a host clock synchronized with the device).
+Each reduces in place into a tensor of its own, made where the call is
+made (inside a capture: in the graph pool, so a replay finds it at the
+same address).  Under gloo with CUDA tensors (ranks sharing one card) they
+copy each tensor to the host and back: gloo's CUDA support covers only
+some collectives (not all-gather, not point-to-point), so every call takes
+the one staged path.  They also keep :data:`STATS` (calls, bytes handed
+over, and, when asked, the wall time on a host clock synchronized with the
+device) at every run, replays included.
 """
 
 from __future__ import annotations
@@ -86,40 +96,50 @@ def _sync(x):
         torch.cuda.synchronize(x.device)
 
 
-def _collective(mesh, x, run):
-    """Run ``run(y) -> result`` on ``x`` (staged through the host under gloo
-    with a CUDA tensor) and keep STATS; returns the result on ``x``'s
-    device."""
-    if STATS.timed:
-        _sync(x)
-        t0 = time.perf_counter()
-    y = x.cpu() if mesh.staging else x
-    out = run(y)
-    if mesh.staging:
-        out = out.to(x.device)
-    if STATS.timed:
-        _sync(out)
-        STATS.seconds += time.perf_counter() - t0
-    STATS.calls += 1
-    STATS.bytes += x.numel() * x.element_size()
-    return out
+def _collective(mesh, src, dst, run):
+    """``run(src, dst)``, a collective that reads ``src`` and writes
+    ``dst`` in place, as an exchange point (``graphs.exchange``: eagerly,
+    or between two graphs of a device program).  Under gloo with CUDA
+    tensors it runs on host copies and ``dst`` is copied back.  Keeps
+    STATS at every run (``src``'s bytes)."""
+    from ptx_torch.integrator.graphs import exchange
+
+    def op(src, dst):
+        if STATS.timed:
+            _sync(src)
+            t0 = time.perf_counter()
+        if mesh.staging:
+            hs = src.cpu()
+            hd = hs if dst is src else torch.empty(dst.shape,
+                                                   dtype=dst.dtype)
+            run(hs, hd)
+            dst.copy_(hd)
+        else:
+            run(src, dst)
+        if STATS.timed:
+            _sync(dst)
+            STATS.seconds += time.perf_counter() - t0
+        STATS.calls += 1
+        STATS.bytes += src.numel() * src.element_size()
+
+    exchange(op, src, dst)
+    return dst
 
 
 def all_reduce(mesh, x, op: str, group):
     """``op`` ("sum", "min", "max") of ``x`` over ``group`` (None: the
-    world), on a copy; a bool is reduced as int32 and comes back int32."""
+    world), in place on a copy of ``x`` (made where the call runs: inside a
+    capture, in the graph pool); a bool is reduced as int32 and comes back
+    int32."""
     import torch.distributed as dist
 
-    if x.dtype == torch.bool:
-        x = x.to(torch.int32)
+    y = (x.to(torch.int32) if x.dtype == torch.bool else x.clone()).contiguous()
     red = getattr(dist.ReduceOp, op.upper())
 
-    def run(y):
-        y = y.clone()
+    def run(y, _):
         dist.all_reduce(y, op=red, group=group)
-        return y
 
-    return _collective(mesh, x.contiguous(), run)
+    return _collective(mesh, y, y, run)
 
 
 def all_gather(mesh, x, group):
@@ -128,39 +148,37 @@ def all_gather(mesh, x, group):
     import torch.distributed as dist
 
     is_bool = x.dtype == torch.bool
-    if is_bool:
-        x = x.to(torch.uint8)
+    x = (x.to(torch.uint8) if is_bool else x).contiguous()
     n = dist.get_world_size(group)
 
-    def run(y):
-        parts = [torch.empty_like(y) for _ in range(n)]
-        dist.all_gather(parts, y, group=group)
-        return torch.cat(parts)
+    def run(y, out):
+        dist.all_gather(list(out.chunk(n)), y, group=group)
 
-    out = _collective(mesh, x.contiguous(), run)
+    out = _collective(mesh, x, x.new_empty((n * x.shape[0], *x.shape[1:])),
+                      run)
     return out.to(torch.bool) if is_bool else out
 
 
 def ring_shift(mesh, x):
     """``ptx``'s ``ppermute`` to the right around the scene axis: send ``x``
-    to tp index ``i + 1`` and receive from ``i - 1`` of this rank's row."""
+    to tp index ``i + 1`` and receive from ``i - 1`` of this rank's row,
+    into a new tensor."""
     import torch.distributed as dist
 
     group, tp = mesh.tp_group, mesh.plan.tp
     right = dist.get_global_rank(group, (mesh.tp_index + 1) % tp)
     left = dist.get_global_rank(group, (mesh.tp_index - 1) % tp)
 
-    def run(y):
-        buf = torch.empty_like(y)
+    def run(y, buf):
         reqs = dist.batch_isend_irecv([
             dist.P2POp(dist.isend, y, right, group),
             dist.P2POp(dist.irecv, buf, left, group),
         ])
         for r in reqs:
             r.wait()
-        return buf
 
-    return _collective(mesh, x.contiguous(), run)
+    x = x.contiguous()
+    return _collective(mesh, x, torch.empty_like(x), run)
 
 
 # --------------------------------------------------------------------------
@@ -172,30 +190,54 @@ def _payload(h: Hit):
     tangent 6-8, uv 9-10, mat_id 11 (a float32 holds every material index
     below 2^24 exactly)."""
     return torch.cat([h.position, h.normal, h.tangent, h.uv,
-                      h.mat_id.to(torch.float32)[:, None]], 1)
+                      h.mat_id.to(torch.float32)[..., None]], -1)
+
+
+def reduce_closest(h: Hit, ax, reduce) -> Hit:
+    """The closest hit over a row of shards from this shard's ``h`` and its
+    tp index ``ax``, in two calls of ``reduce(x, op)`` (an all-reduce over
+    the row): ``ptx``'s ``sharded_closest`` -- the least ``t``, the lowest
+    tp index among the shards that reach it, the payload of that one shard
+    and the OR of ``hit`` -- bit for bit.
+
+    1. One int64 min of ``(bits(t) << 32) | ax``: a hit's ``t`` is finite
+       and ``>= 0`` (a miss: ``geometry.INF``), so its bits order as the
+       float does, and the least key holds the least ``t`` and the lowest
+       tp index that reaches it.  The Moller-Trumbore test every backend
+       ends with admits ``t = -0.0``; it is keyed as ``+0.0``, the tie
+       ``t == t_min`` makes of it, and comes back as ``+0.0``.  No ``t`` is
+       NaN (a hit needs a finite ``t``).
+    2. One float32 sum of ``[payload masked to the winner | hit]``: one
+       non-zero payload term (exact), and a count of the shards that hit,
+       above 0 where any did.
+
+    The shard axis may also be a leading axis of ``h`` and ``ax`` (the
+    tests simulate a row so)."""
+    t = torch.where(h.hit, h.t, geometry.INF)
+    t = torch.where(t == 0.0, 0.0, t)
+    key = reduce((t.view(torch.int32).to(torch.int64) << 32) | ax, "min")
+    win = (key & 0xFFFFFFFF) == ax
+    pay = reduce(torch.cat([torch.where(win[..., None], _payload(h), 0.0),
+                            h.hit.to(torch.float32)[..., None]], -1), "sum")
+    return Hit(hit=pay[..., 12] > 0,
+               t=(key >> 32).to(torch.int32).view(torch.float32),
+               position=pay[..., 0:3], normal=pay[..., 3:6],
+               tangent=pay[..., 6:9], uv=pay[..., 9:11],
+               mat_id=pay[..., 11].to(torch.int32))
 
 
 def sharded_closest(base_closest, mesh):
     """Wrap a rank's closest-hit backend with the min reduce over its row
-    (``ptx``'s ``sharded_closest``): the least ``t`` over the shards, the
-    lowest tp index among the shards that reach it, then the sum of the
-    payload masked to that one shard (one non-zero term: exact), and the
-    max of ``hit``.  Every rank of the row ends with the same Hit."""
-    group, ax, n_ax = mesh.tp_group, mesh.tp_index, mesh.plan.tp
+    (``ptx``'s ``sharded_closest``, in the two collectives of
+    :func:`reduce_closest`).  Every rank of the row ends with the same
+    Hit."""
+
+    def reduce(x, op):
+        return all_reduce(mesh, x, op, mesh.tp_group)
 
     def closest(fs: FlatScene, orig, dirn) -> Hit:
-        h: Hit = base_closest(fs, orig, dirn)
-        t = torch.where(h.hit, h.t, geometry.INF)
-        t_min = all_reduce(mesh, t, "min", group)
-        cand = torch.where(t == t_min, ax, n_ax).to(torch.int32)
-        ax_win = all_reduce(mesh, cand, "min", group)
-        win = (t == t_min) & (ax_win == ax)
-        pay = all_reduce(mesh, torch.where(win[:, None], _payload(h), 0.0),
-                         "sum", group)
-        hit = all_reduce(mesh, h.hit, "max", group) > 0
-        return Hit(hit=hit, t=t_min, position=pay[:, 0:3],
-                   normal=pay[:, 3:6], tangent=pay[:, 6:9], uv=pay[:, 9:11],
-                   mat_id=pay[:, 11].to(torch.int32))
+        return reduce_closest(base_closest(fs, orig, dirn), mesh.tp_index,
+                              reduce)
 
     return closest
 
@@ -358,7 +400,9 @@ def _exchanges(static: SceneStatic, mesh, plan: pmesh.Plan, comm: str,
         any_hit = sharded_any_hit(base_any, mesh)
 
     # Trip counts agree over the whole world (strictly only a row must
-    # agree; one int32 max per bounce costs little).
+    # agree; one int32 max per bounce costs little).  On the device loop
+    # the max stays on the device (NCCL) until the loop reads it one
+    # iteration late.
     def live_sync(n):
         return all_reduce(mesh, n.reshape(1).to(torch.int32), "max", None)[0]
 
@@ -387,11 +431,12 @@ def make_distributed_sample_fn(
     The launch cap applies to one rank's wavefront: with ``k == 1`` a slice
     is traced in launches of :func:`launch_pixels`.
 
-    A rank without exchanges (dp) on the fused integrator gets the device
-    pass over its slice (``integrator.graphs.DevicePass``: each launch a
-    scalar copy and prologue, loop and epilogue graphs, the fold into its
-    carry in place); a tp rank keeps the host loop with eager edges (its
-    exchanges are collectives, outside capture).
+    On the fused integrator every rank gets the device pass over its slice
+    (``integrator.graphs.DevicePass``: each launch a scalar copy and
+    prologue, loop and epilogue graphs, the fold into its carry in place);
+    a tp rank's chunk steps are programs of graph segments with its
+    exchanges between them, in "reduce" and "ring" mode and with a sharded
+    texel pack.  The plain shader keeps the host loop with eager edges.
 
     The port splits whole pixels over the ranks (``ptx`` splits the k * P
     lanes), so each rank's carry holds whole pixels; the RNG is keyed by
@@ -457,8 +502,9 @@ def diff_integrator(static: SceneStatic, cfg: RenderConfig, mesh,
     (``diff.inverse.make_diff_integrator``) on ``diff.inverse.diff_backend``
     with the exchanges of :func:`make_distributed_sample_fn` and
     ``live_sync`` around it: on a CUDA rank whose scene is not sharded (dp)
-    the device scan, on a tp rank the host scan (its exchanges and
-    ``live_sync`` are collectives, issued outside capture)."""
+    the device scan, on a tp rank the host scan (the device scan does not
+    yet cut a forward under autograd at its exchanges, as the device loop
+    does)."""
     from ptx_torch import render as R
     from ptx_torch.diff import inverse
 

@@ -7,7 +7,10 @@ Joins the world through ``ptx_torch.parallel.multihost.initialize`` (the
 torchrun environment; gloo, as there is no card), renders every case of
 :data:`CASES` whose world size is ``n`` with
 ``ptx_torch.parallel.dist.render_distributed`` and writes each rank's
-image to ``OUT_DIR/<case>.rank<r>.npz`` (a ``grad`` case: one step of
+image to ``OUT_DIR/<case>.rank<r>.npz`` (a case of :data:`HOST_LOOP`
+also ``<case>.host.rank<r>.npz``, the same render with the fused step on
+the host loop, and the route its sample pass took; a ``grad`` case: one
+step of
 ``dist.make_distributed_train_step``, its loss, gradients and parameters
 after the Adam update, or the ``ValueError`` it raised and the collective
 calls made before it); then, in ``mesh.rank<r>.json``,
@@ -105,6 +108,13 @@ def _cases():
 
 
 CASES = _cases()
+# The tp cases rendered again on the host loop (the fused step's
+# ``shade_cuda._eager_integrator``), which their device pass must equal
+# bit for bit: reduce and ring with survivor compaction (the sort, the
+# chunks and the lagged live counts on every rank), a 2 x 2 ring, and a
+# sharded texel pack.
+HOST_LOOP = ("compact_dp1_tp2_reduce", "compact_dp1_tp2_ring",
+             "compact_dp2_tp2_ring", "tex_tp2_sharded")
 
 
 def grad_target(cfg):
@@ -140,6 +150,38 @@ def train_step(fs, static, spec, plan, mesh):
         out[f"grad.{f}"] = p.grad.numpy()
         out[f"param.{f}"] = p.detach().numpy()
     return out
+
+
+def host_loop(render, cfg):
+    """``render(cfg)`` with the fused integrator on the host loop."""
+    from ptx_torch.kernels import shade_cuda
+
+    make = shade_cuda.make_pallas_integrator
+
+    def eager(static, cfg, closest, any_hit, live_sync=None, tex_shard=None):
+        step = shade_cuda.make_pallas_step(static, cfg, closest, any_hit,
+                                           tex_shard=tex_shard)
+        return shade_cuda._eager_integrator(static, cfg, step, live_sync)
+
+    shade_cuda.make_pallas_integrator = eager
+    try:
+        return render(cfg)
+    finally:
+        shade_cuda.make_pallas_integrator = make
+
+
+def route(fs, static, spec, plan, mesh):
+    """The class of the sample pass ``render_distributed`` makes for a
+    case on this rank."""
+    from ptx_torch import render as R
+    from ptx_torch.parallel import dist as pdist
+
+    cfg = config(spec)
+    _, static = pdist.prepare_scene(fs, static, cfg, plan, mesh, "cpu")
+    k = R.resolve_samples_per_launch(cfg, ways=pdist.ray_ways(plan,
+                                                               spec["comm"]))
+    return type(pdist.make_distributed_sample_fn(
+        static, cfg, mesh, plan, spec["comm"], k=k, device="cpu")).__name__
 
 
 def load(scene):
@@ -204,6 +246,11 @@ def main(out_dir: str) -> int:
 
         if spec["kind"] == "render":
             save(name, render(config(spec)))
+            if name in HOST_LOOP:
+                save(f"{name}.host", host_loop(render, config(spec)))
+                with open(os.path.join(out_dir, f"{name}.route.rank{rank}"),
+                          "w") as f:
+                    f.write(route(fs, static, spec, plan, mesh))
         elif spec["kind"] == "chunk":
             save(f"{name}.whole", render(config(spec)))
             cap = R.MAX_RAYS_PER_LAUNCH

@@ -1,4 +1,5 @@
-"""Carry the JAX package's host objects over to the port's own classes.
+"""Carry the JAX package's host objects over to the port's own classes,
+and hold torch to one intra-op thread per test process.
 
 The port (``ptx_torch``) keeps its own copies of ``ptx.config`` and
 ``ptx.scene.flatten`` and refuses the JAX package's classes.  Parity tests
@@ -10,9 +11,16 @@ and carry optimisation-parameter dicts both ways.
 import dataclasses
 
 import numpy as np
+import torch
 
 from ptx_torch import config as pconfig
 from ptx_torch.scene import flatten as pflatten
+
+# One intra-op thread per test process.  The suite runs several pytest
+# workers on a few cores; at torch's default (a thread per core in each
+# worker) their threads spin against each other and a file that takes
+# 20 s alone takes minutes.  Every port test module imports this helper.
+torch.set_num_threads(1)
 
 
 def port_flat(fs):

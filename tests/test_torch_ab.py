@@ -17,6 +17,7 @@ import ab_trees  # noqa: E402
 from ptx_torch import bench  # noqa: E402
 from ptx_torch import render as R  # noqa: E402
 from ptx_torch.kernels.tiles import RB, TT  # noqa: E402
+import _torch_port  # noqa: E402,F401  (one torch thread per test process)
 
 S_GATE_OPS = ab_trees._smoke().GATE_OPS
 

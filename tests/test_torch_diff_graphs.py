@@ -24,6 +24,7 @@ from ptx_torch.diff import graphs, inverse
 from ptx_torch.integrator.wavefront import make_integrator
 from ptx_torch.parallel import dist
 from ptx_torch.parallel.mesh import Plan
+import _torch_port  # noqa: F401  (one torch thread per test process)
 
 SCENE = "arch:2000"
 MATERIALS = ("mat_albedo", "mat_emissive", "mat_roughness", "sun_energy")

@@ -160,3 +160,96 @@ def test_device_constant_outlives_any_number_of_others():
     again = utils.device_constant((0.25, -0.0, 3.0), "cpu")
     assert again is first and again.data_ptr() == ptr
     assert torch.equal(again, torch.tensor([0.25, -0.0, 3.0]))
+
+
+class _FakeGraph:
+    """A CUDA graph's calls, logged (the CPU has none to capture)."""
+
+    made, log = [], []
+
+    def __init__(self):
+        self.n = len(_FakeGraph.made)
+        _FakeGraph.made.append(self)
+
+    def capture_begin(self, pool, capture_error_mode):
+        _FakeGraph.log.append(f"begin {self.n}")
+
+    def capture_end(self):
+        _FakeGraph.log.append(f"end {self.n}")
+
+    def replay(self):
+        _FakeGraph.log.append(f"replay {self.n}")
+
+
+def test_program_is_cut_at_its_exchanges(monkeypatch):
+    """``GraphRunner``'s program with CUDA's calls stubbed: a unit with two
+    exchanges is captured as three segments, each replayed at its cut and
+    followed by its exchange (the last replayed after the capture), so the
+    first use runs the work once; a later use replays segment, exchange,
+    segment, ... in capture order; each segment adds the launches counted
+    while it was captured; a unit without an exchange is one graph; an
+    exchange outside a capture runs at once; a failed unit leaves no cut
+    open."""
+    from contextlib import nullcontext
+
+    from ptx_torch.kernels import _build
+
+    log = _FakeGraph.log = []
+    _FakeGraph.made = []
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: "pool")
+    monkeypatch.setattr(torch.cuda, "Stream", lambda: "side")
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: "outer")
+    monkeypatch.setattr(torch.cuda, "stream", lambda s: nullcontext())
+    _build.reset_launches()
+
+    def op(name):
+        def run(src, dst):
+            log.append(name)
+            dst.copy_(src + 1)
+        return run
+
+    def unit():
+        log.append("a")
+        _build.LAUNCHES["shade"] += 1
+        y = torch.zeros(1)
+        graphs.exchange(op("x0"), y, y)
+        log.append("b")
+        _build.LAUNCHES["closest"] += 2
+        graphs.exchange(op("x1"), torch.ones(1), torch.zeros(1))
+        log.append("c")
+
+    runner, programs = graphs.GraphRunner(), {}
+    runner._run(programs, ("step",), unit, cuda=True)
+    assert log == ["begin 0", "a", "end 0", "replay 0", "x0", "begin 1", "b",
+                   "end 1", "replay 1", "x1", "begin 2", "c", "end 2",
+                   "replay 2"]
+    segments = programs[("step",)]
+    assert [s[1] for s in segments] == [{"shade": 1}, {"closest": 2}, {}]
+    assert [s[2] is None for s in segments] == [False, False, True]
+    assert runner.captures == 3 and dict(_build.LAUNCHES)["closest"] == 2
+    log.clear()
+    runner._run(programs, ("step",), unit, cuda=True)
+    assert log == ["replay 0", "x0", "replay 1", "x1", "replay 2"]
+    assert _build.LAUNCHES["shade"] == 2 and _build.LAUNCHES["closest"] == 4
+
+    log.clear()
+    runner._run(programs, ("sort",), lambda: log.append("s"), cuda=True)
+    assert log == ["begin 3", "s", "end 3", "replay 3"]
+    assert len(programs[("sort",)]) == 1
+
+    log.clear()
+    y = torch.zeros(1)
+    graphs.exchange(op("now"), y, y)
+    assert log == ["now"] and y.item() == 1.0
+
+    def failing():
+        graphs.exchange(op("x"), torch.zeros(1), torch.zeros(1))
+        raise RuntimeError("in the second segment")
+
+    log.clear()
+    with pytest.raises(RuntimeError, match="second segment"):
+        runner._run({}, ("bad",), failing, cuda=True)
+    assert log[-1] == "end 5" and graphs._CUTTER is None
+    assert runner._open is None and runner._segments is None
+    _build.reset_launches()

@@ -15,6 +15,10 @@ test:
   virtual CPU devices, with the render-parity bound of
   ``tests/test_torch_render.py`` (|dcolor| <= 1e-4 on >= 99 % of pixels,
   alpha equal and the uint8 image within 1 on >= 99 %);
+* each tp rank's device pass (``integrator.graphs.DevicePass``, its chunk
+  steps cut at the exchanges; no capture on the CPU) against the same
+  render on the host loop, bit for bit, for reduce and ring with
+  compaction, a 2 x 2 ring and a sharded texel pack;
 * survivor compaction on every shard, sample batching (k = 4 against
   k = 1, rtol 1e-6, atol 1e-7), the auto-chunk, checkpoint and resume (bit
   for bit) and sharded textures (bit-equal to the replicated pack);
@@ -45,6 +49,7 @@ import numpy as np
 import pytest
 
 import _torch_dist_worker as W
+import _torch_port  # noqa: F401  (one torch thread per test process)
 from ptx_torch import render as R
 
 WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -289,6 +294,24 @@ def test_two_rank_checkpoint_resumes_on_one_device(worlds, tmp_path):
                                   _single("ckpt_dp2", samples=4)["color"])
     np.testing.assert_array_equal(resumed.color,
                                   _result(worlds, "ckpt_dp2.full", 2)["color"])
+
+
+@pytest.mark.parametrize("name", W.HOST_LOOP)
+def test_tp_device_pass_matches_host_loop(worlds, name):
+    """A tp rank's sample pass is the device pass (its chunk steps cut at
+    the exchanges; on the CPU the same schedule runs without capture), and
+    its image equals the same render on the host loop bit for bit."""
+    out, errors = worlds
+    world = W.CASES[name]["world"]
+    got = _result(worlds, name, world)
+    want = _result(worlds, f"{name}.host", world)
+    for key in ("color", "alpha"):
+        np.testing.assert_array_equal(got[key].view(np.uint32),
+                                      want[key].view(np.uint32), err_msg=key)
+    np.testing.assert_array_equal(got["image"], want["image"])
+    for r in range(world):
+        with open(os.path.join(out, f"{name}.route.rank{r}")) as f:
+            assert f.read() == "DevicePass", errors[world]
 
 
 def test_sharded_textures_match_replicated(worlds):

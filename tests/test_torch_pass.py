@@ -30,6 +30,7 @@ from ptx_torch import render
 from ptx_torch.config import RenderConfig
 from ptx_torch.integrator import graphs, wavefront
 from ptx_torch.kernels import shade_cuda
+import _torch_port  # noqa: F401  (one torch thread per test process)
 
 FOLD_CASES = [  # (k, count, n): n up to ~2^23
     (1, 1, 0), (1, 1, 6), (1, 1, (1 << 23) - 1), (2, 2, 3), (2, 1, 40),

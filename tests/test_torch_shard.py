@@ -267,3 +267,112 @@ def test_launch_pixels_follow_the_single_device_chunk(size):
         launch = pdist.launch_pixels(plan, comm, n)
         assert launch <= max(R.MAX_RAYS_PER_LAUNCH, n // ways)
         assert (n // ways) % launch == 0 and launch % 128 == 0
+
+
+def _row_reduce(calls):
+    """An all-reduce over a row of shards simulated as the leading axis of
+    one tensor: every shard gets the reduction of all rows."""
+    def reduce(x, op):
+        calls.append(op)
+        red = {"min": torch.amin, "max": torch.amax, "sum": torch.sum}[op]
+        return red(x, 0, keepdim=True).expand_as(x).clone()
+
+    return reduce
+
+
+def _four_call_closest(h, ax, n_ax, reduce):
+    """The four-call reduce the two-call one replaces (``ptx``'s
+    ``sharded_closest``): the min of ``t``, the min of the winning tp
+    index, the sum of the masked payload, the max of ``hit``."""
+    from ptx_torch.kernels.intersect import Hit
+
+    t = torch.where(h.hit, h.t, 3.0e38)
+    t_min = reduce(t, "min")
+    ax_win = reduce(torch.where(t == t_min, ax, n_ax).to(torch.int32), "min")
+    win = (t == t_min) & (ax_win == ax)
+    pay = reduce(torch.where(win[..., None], pdist._payload(h), 0.0), "sum")
+    hit = reduce(h.hit.to(torch.int32), "max") > 0
+    return Hit(hit=hit, t=t_min, position=pay[..., 0:3], normal=pay[..., 3:6],
+               tangent=pay[..., 6:9], uv=pay[..., 9:11],
+               mat_id=pay[..., 11].to(torch.int32))
+
+
+def _crafted_shards(n_shards=3, n_rays=64, seed=5):
+    """A Hit per shard stacked on a leading axis: seeded random hits and
+    distances (ties among them), then crafted rays: equal ``t`` on two
+    shards, no hit anywhere, a hit at ``+inf``, the smallest subnormal
+    ``t`` (alone and tied), ``-0.0`` against ``+0.0``, and payloads whose
+    normals hold ``-0.0``."""
+    from ptx_torch.kernels.intersect import Hit
+
+    rng = np.random.default_rng(seed)
+    shape = (n_shards, n_rays)
+    hit = rng.random(shape) < 0.6
+    t = rng.choice(np.float32([0.25, 0.5, 1.0, 2.0, 7.75]), shape)
+    t = np.where(hit, t, np.float32(3.0e38)).astype(np.float32)
+    normal = rng.normal(size=(*shape, 3)).astype(np.float32)
+    normal[rng.random((*shape, 3)) < 0.3] = -0.0
+    tiny = np.float32(np.finfo(np.float32).smallest_subnormal)
+    inf, big = np.float32(np.inf), np.float32(3.0e38)
+    crafted = [  # (t per shard, hit per shard)
+        ([2.0, 1.5, 1.5], [1, 1, 1]),  # a tie: the lower tp index wins
+        ([big, big, big], [0, 0, 0]),  # no hit anywhere
+        ([inf, big, big], [1, 0, 0]),  # a hit at +inf
+        ([inf, inf, inf], [1, 1, 1]),
+        ([1.0, 0.5, tiny], [1, 1, 1]),  # the smallest subnormal
+        ([tiny, 1.0, tiny], [1, 1, 1]),
+        ([1.0, 0.0, -0.0], [1, 1, 1]),  # +0.0 and -0.0 tie at index 1
+        ([-0.0, 0.0, 1.0], [1, 1, 1]),
+        ([3.0, -0.0, 2.0], [1, 1, 1]),  # -0.0 alone
+    ]
+    for i, (ts, hs) in enumerate(crafted):
+        t[:, i] = ts
+        hit[:, i] = np.array(hs, bool)
+    normal[:, 0:len(crafted)] = -0.0
+    as_t = torch.from_numpy
+    return Hit(hit=as_t(hit), t=as_t(t),
+               position=as_t(rng.normal(size=(*shape, 3)).astype(np.float32)),
+               normal=as_t(normal),
+               tangent=as_t(rng.normal(size=(*shape, 3)).astype(np.float32)),
+               uv=as_t(rng.random((*shape, 2)).astype(np.float32)),
+               mat_id=as_t(rng.integers(0, 1000, shape).astype(np.int32)))
+
+
+def test_two_call_closest_reduce_matches_four_calls(monkeypatch):
+    """``dist.sharded_closest`` issues two collectives per call and gives
+    the four-call reduce's Hit bit for bit on every field, on crafted
+    shards: ties, misses, ``+inf``, subnormals, ``-0.0`` payloads.  A hit
+    at ``-0.0`` ties with ``+0.0`` as ``t == t_min`` makes it, and its
+    ``t`` comes back as ``+0.0``, equal as a float."""
+    import types
+
+    h = _crafted_shards()
+    n = h.t.shape[0]
+    ax = torch.arange(n)[:, None]
+    calls = []
+    reduce = _row_reduce(calls)
+    monkeypatch.setattr(pdist, "all_reduce",
+                        lambda mesh, x, op, group: reduce(x, op))
+    mesh = types.SimpleNamespace(tp_index=ax, tp_group=None)
+    got = pdist.sharded_closest(lambda fs, o, d: h, mesh)(None, None, None)
+    assert calls == ["min", "sum"]
+    calls.clear()
+    want = _four_call_closest(h, ax, n, reduce)
+    assert len(calls) == 4
+    def bits(x):
+        return x.view(torch.uint8 if x.dtype == torch.bool else torch.int32)
+
+    for field in ("hit", "position", "normal", "tangent", "uv", "mat_id"):
+        a, b = getattr(got, field), getattr(want, field)
+        assert a.dtype == b.dtype and torch.equal(bits(a), bits(b)), field
+    zero = want.t == 0.0
+    assert torch.equal(bits(got.t[~zero]), bits(want.t[~zero]))
+    assert (got.t[zero] == 0.0).all() and not torch.signbit(got.t[zero]).any()
+    # Every shard ends with the same Hit, and the crafted winners hold.
+    assert torch.equal(bits(got.t), bits(got.t[:1]).expand_as(bits(got.t)))
+    assert got.t[0, 0] == 1.5 and torch.equal(got.normal[0, 0], h.normal[1, 0])
+    assert not got.hit[0, 1] and got.hit[0, 2] and got.hit[0, 3]
+    assert got.t[0, 4] == h.t[2, 4] and got.t[0, 5] == h.t[0, 5]
+    assert torch.equal(got.mat_id[0, 6], h.mat_id[1, 6])
+    assert torch.equal(got.mat_id[0, 7], h.mat_id[0, 7])
+    assert torch.equal(got.mat_id[0, 8], h.mat_id[1, 8])
