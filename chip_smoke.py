@@ -135,8 +135,14 @@ Phases (any failure raises, and the exit code is then non-zero):
    parameters after the update bit-equal, the loss and gradients within
    1e-5 of the one-device ``make_batch_value_and_grad_fn`` (the pixels a
    near tie flipped left out on both sides: each side's own image is its
-   target there), and per rank grad-paths/s (fastest of 3), peak device
-   memory and the collective helpers' share of a step and its bytes.
+   target there), every rank's scan the device scan (asserted; a tp
+   rank's steps cut into graph segments at its exchanges) and its loss and
+   gradients bit-equal to the host scan's on the same exchanges (asserted),
+   and per rank grad-paths/s through the device scan and the host scan in
+   3 turns each, the device scan's idle split over one value and gradient
+   (``replay_split``), its graphs, capture seconds, pool bytes and segments
+   per step, peak device memory of each scan, and the collective helpers'
+   share of a step, its calls and its bytes.
 13. the device loop (``ptx_torch.integrator.graphs.DeviceLoop``: CUDA
    graphs of the chunk step and the sort, the live count read one
    iteration late), the fused integrator's loop in phases 5-12 too:
@@ -1748,6 +1754,9 @@ GRAD_FIELDS = ("mat_albedo", "mat_emissive")
 GRAD_LR = 1e-2
 GRAD_TARGET_SEED = 11
 GRAD_REPS = 3
+# The routes of a layout's value and gradient in turns: the device scan,
+# and the host scan on the same exchanges, GRAD_REPS each.
+TRAIN_TURNS = ("device", "host", "host", "device", "device", "host")
 # The launch-composition check: a 640x480 frame traced in the single
 # device's 30,720-pixel launches and in the 25,600-pixel launches of four
 # ray-parallel ranks (ptx_torch.parallel.dist.launch_pixels), at four
@@ -1803,6 +1812,52 @@ def host_loop():
         yield
     finally:
         shade_cuda.make_pallas_integrator = make
+
+
+@contextlib.contextmanager
+def scan_route(name: str):
+    """Within it, ``inverse.make_diff_integrator`` makes the scan ``name``:
+    "device" (``inverse.takes_device_scan`` answering yes, which on the
+    card is its own answer) or "host" (``wavefront.make_integrator(
+    differentiable=True)`` with the same hooks, the device scan's
+    reference)."""
+    from ptx_torch.diff import inverse
+
+    take = inverse.takes_device_scan
+    inverse.takes_device_scan = lambda device: name == "device"
+    try:
+        yield
+    finally:
+        inverse.takes_device_scan = take
+
+
+@contextlib.contextmanager
+def made_integrators():
+    """Within it, each integrator ``parallel.dist.diff_integrator`` makes
+    is appended to the list it yields."""
+    from ptx_torch.parallel import dist as pdist
+
+    made, make = [], pdist.diff_integrator
+
+    def recorded(*args, **kwargs):
+        made.append(make(*args, **kwargs))
+        return made[-1]
+
+    pdist.diff_integrator = recorded
+    try:
+        yield made
+    finally:
+        pdist.diff_integrator = make
+
+
+def scan_programs(scan) -> dict:
+    """A device scan's graphs: ``graphs`` captured, ``capture_s``,
+    ``pool_bytes`` and ``segments``, the sorted segment counts of its
+    steps' forward programs (one per step on a rank without exchanges)."""
+    sizes = {len(step.forward) for launch in scan._launches.values()
+             for step in launch.steps if step.forward is not None}
+    return dict(graphs=scan.captures, capture_s=scan.capture_seconds,
+                pool_bytes=scan.pool_bytes(), segments=sorted(sizes))
 
 
 def loop_programs(loop) -> dict:
@@ -1972,18 +2027,24 @@ def flip_target(target, image, flips):
 
 
 def run_train_layout(fs, static, cfg, plan, comm, dev, target, single_image,
-                     plain, reps=GRAD_REPS):
+                     plain, turns=TRAIN_TURNS):
     """The distributed training step of one layout on this rank, as phase
     12's ranks and ``multirank_check.py --backward`` run it: the rank's
     image of the step's forward against ``single_image`` (the one-device
     one; the pixels off by more than COLOR_ATOL are flips, and each side's
     own image is its target there); then, with the launch counters and the
     plain-version counters set to 0 just before and read just after, one
-    value and gradient (the checked one); ``reps`` more, each from a
-    barrier (the fastest is the rate), with the peak device memory over
-    them; last one ``make_distributed_train_step`` step from a barrier
-    with the collective helpers' clock on.  Returns a dict of numpy
-    arrays and numbers."""
+    value and gradient on the device scan (the checked one; on a card the
+    route ``dist.diff_integrator`` takes, asserted, which a CPU rehearsal
+    forces); the same on the host scan with the same exchanges, whose loss
+    and gradients must equal it bit for bit; one call of each route per
+    entry of ``turns``, each from a barrier (the fastest of a route is its
+    rate); on a card the peak device memory of one call of each and the
+    device scan's :func:`replay_split` over one call; last, after one
+    warm step on a copy of the parameters, one
+    ``make_distributed_train_step`` step from a barrier with the
+    collective helpers' clock on.  Returns a dict of numpy arrays and
+    numbers."""
     import torch
     import torch.distributed as tdist
 
@@ -1993,6 +2054,9 @@ def run_train_layout(fs, static, cfg, plan, comm, dev, target, single_image,
     from ptx_torch.parallel import mesh as pmesh
 
     cuda = dev.type == "cuda"
+    # The card's own route; a CPU rehearsal forces it.
+    device_route = (contextlib.nullcontext if cuda
+                    else lambda: scan_route("device"))
 
     def sync():
         if cuda:
@@ -2009,10 +2073,11 @@ def run_train_layout(fs, static, cfg, plan, comm, dev, target, single_image,
     mesh = pmesh.make_mesh(plan, dev)
     fs, static = pdist.prepare_scene(fs, static, cfg, plan, mesh, dev)
     start, stop = pdist.pixel_range(mesh, comm, cfg.width * cfg.height)
-    integrate = pdist.diff_integrator(static, cfg, mesh, plan, comm,
-                                      GRAD_FIELDS, dev)
+    with device_route():
+        integrate = pdist.diff_integrator(static, cfg, mesh, plan, comm,
+                                          GRAD_FIELDS, dev)
     scan = "device" if isinstance(integrate, DeviceScan) else "host"
-    if cuda and scan != ("host" if plan.scene_sharded else "device"):
+    if scan != "device":
         raise AssertionError(f"a {'tp' if plan.scene_sharded else 'dp'} rank "
                              f"took the {scan} scan")
     own = grad_image(integrate, fs, cfg, start, stop - start)
@@ -2021,20 +2086,44 @@ def run_train_layout(fs, static, cfg, plan, comm, dev, target, single_image,
     target[start:stop] = flip_target(target[start:stop], own, flips)
     params = {f: getattr(fs, f) for f in GRAD_FIELDS}
     args = (static, cfg, mesh, plan, target, cfg.samples, comm, GRAD_FIELDS)
-    vg = pdist.make_distributed_value_and_grad_fn(*args, device=dev)
+    with device_route(), made_integrators() as made:
+        vgs = dict(device=pdist.make_distributed_value_and_grad_fn(
+            *args, device=dev))
+    with scan_route("host"):
+        vgs["host"] = pdist.make_distributed_value_and_grad_fn(*args,
+                                                               device=dev)
     _build.reset_launches()
     plain.clear()
-    loss, grads = vg(params, fs)
+    loss, grads = vgs["device"](params, fs)
     sync()
     out = dict(launches=dict(_build.LAUNCHES), plain_calls=dict(plain),
                scan=scan, loss=float(loss),
                flips=(start + flips.nonzero()[:, 0]).tolist(),
                **{f"grad.{f}": g.cpu().numpy() for f, g in grads.items()})
-    if cuda:
+    h_loss, h_grads = vgs["host"](params, fs)
+    for key, a, b in [("loss", loss, h_loss)] + [
+            (f, grads[f], h_grads[f]) for f in grads]:
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError(f"the device scan's {key} differs from the "
+                                 "host scan's")
+    turn_walls = [(route, timed_call(lambda: vgs[route](params, fs))[1])
+                  for route in turns]
+    out.update(turn_walls=turn_walls,
+               walls=[w for route, w in turn_walls if route == "device"],
+               programs=scan_programs(made[0]))
+    out["peak_bytes"] = {}
+    for route in ("device", "host") if cuda else ():
         torch.cuda.reset_peak_memory_stats()
-    out["walls"] = [timed_call(lambda: vg(params, fs))[1] for _ in range(reps)]
-    out["peak_bytes"] = torch.cuda.max_memory_allocated() if cuda else None
-    step = pdist.make_distributed_train_step(*args, device=dev, lr=GRAD_LR)
+        timed_call(lambda: vgs[route](params, fs))
+        out["peak_bytes"][route] = torch.cuda.max_memory_allocated()
+    if cuda:
+        tdist.barrier()
+        sync()
+        out["split"] = replay_split(lambda: vgs["device"](params, fs))
+    with device_route():
+        step = pdist.make_distributed_train_step(*args, device=dev,
+                                                 lr=GRAD_LR)
+    step(*step.init(params), fs)  # its scan's warm-up and captures
     leaves, opt = step.init(params)
     pdist.STATS.reset(timed=True)
     _, out["step_s"] = timed_call(lambda: step(leaves, opt, fs))
@@ -2361,12 +2450,37 @@ def compare_train_step(name, ranks, fs, static, cfg, dev, target,
     return loss_err, errs, n_flips
 
 
+def log_train_rank(tag, t, paths, smi, where):
+    """A rank's training step of one layout (:func:`run_train_layout`):
+    its scan, grad-paths/s through each scan in turns, peak memory, the
+    device scan's graphs and split, the step's collectives."""
+    g = t["programs"]
+    peak = ", ".join(f"{route} scan {n:,}" for route, n in
+                     t["peak_bytes"].items()) or "not measured"
+    log(f"  {tag}: {t['scan']} scan, loss and gradients bit-equal to the "
+        f"host scan's; grad-paths/s in turns " + ", ".join(
+            f"{route} {paths / w:,.0f}" for route, w in t["turn_walls"])
+        + f" ({where}; {smi}); peak bytes {peak}; {g['graphs']} graphs "
+        f"captured in {g['capture_s']:.3f} s, pool "
+        + (f"{g['pool_bytes']:,} bytes" if g["pool_bytes"] is not None
+           else "not measured")
+        + f", segments per step {g['segments']}")
+    if t.get("split"):
+        log(f"  {tag}: device scan, one value and gradient: "
+            f"{split_line(t['split'])} ({where}; {smi})")
+    log(f"  {tag}: train step {t['step_s']:.3f} s, collectives "
+        f"{t['collective_s']:.3f} s = "
+        f"{100 * t['collective_s'] / t['step_s']:.1f} % of it in "
+        f"{t['collective_calls']} calls, {t['bytes_per_step']:,} bytes "
+        f"({where}; {smi})")
+
+
 def check_train_step(dev, reports, tmp, fs, static, cfg, single_image, smi):
     """Phase 12 (f): each layout's training step in the two ranks against
     one device (:func:`compare_train_step`), each rank's plan and sweeps
-    launched and no plain version called, then per rank grad-paths/s (the
-    fastest of GRAD_REPS), peak device memory, and the collective helpers'
-    share of the step's wall and its bytes."""
+    launched and no plain version called (every rank on the device scan,
+    bit-equal to the host scan: :func:`run_train_layout` asserts it), then
+    per rank :func:`log_train_rank`."""
     import numpy as np
 
     target = grad_target(cfg, dev)
@@ -2389,16 +2503,9 @@ def check_train_step(dev, reports, tmp, fs, static, cfg, single_image, smi):
             + f" ({n_flips} flipped pixels left out); the ranks' loss, "
             "gradients and parameters after one Adam step bit-equal")
         for r, t in enumerate(ranks):
-            peak = (f"{t['peak_bytes']:,} bytes peak" if t["peak_bytes"]
-                    is not None else "peak memory not measured")
-            log(f"  rank {r} {name}: {t['scan']} scan, "
-                f"{paths / min(t['walls']):,.0f} "
-                f"grad-paths/s (fastest of {len(t['walls'])}), {peak}; "
-                f"train step {t['step_s']:.3f} s, collectives "
-                f"{t['collective_s']:.3f} s = "
-                f"{100 * t['collective_s'] / t['step_s']:.1f} % of it in "
-                f"{t['collective_calls']} calls, {t['bytes_per_step']:,} bytes "
-                f"({SHARED}; {smi})")
+            log(f"  rank {r} {name}: {paths / min(t['walls']):,.0f} "
+                f"grad-paths/s (fastest of {len(t['walls'])})")
+            log_train_rank(f"rank {r} {name}", t, paths, smi, SHARED)
 
 
 def hold_host_loop(name, reports, image, tmp):
@@ -2661,29 +2768,41 @@ def loop_render(integrate, fs, static, cfg, dev, outs=None):
 
 
 def replay_split(run) -> dict:
-    """``run()`` (a sample loop on a device loop) with CUDA events around
-    every graph replay, a mark around each ``DeviceLoop._loop`` call (a
-    launch's bounce iterations) and one around each program replay
+    """``run()`` (a sample loop on a device loop, or a value and gradient
+    on a device scan) with CUDA events around every graph replay, a mark
+    around each ``DeviceLoop._loop`` call (a launch's bounce iterations) and
+    each ``DeviceScan._loop`` and ``_backward`` call (a launch's bounce
+    steps forward, then backward), and one around each program replay
     (``GraphRunner._run_program``: a unit's segments with the exchanges
     between them), then where the device sat outside the replays:
     ``wall_ms`` (a start event after a synchronize to an end event after
     ``run`` returned), ``busy_ms`` (the union of the replay spans),
     ``boundary_idle_ms`` (the gaps between two segments of one program: a
     tp rank's exchanges), ``iteration_idle_ms`` (the other gaps between two
-    replays of one ``_loop`` call), and ``edge_idle_ms`` (the gaps at a
+    replays of one marked call), and ``edge_idle_ms`` (the gaps at a
     launch edge: before the first replay, after the last, and every gap
-    outside a ``_loop`` call).  Eager kernels (a host loop's edges, the
-    live counts' sums and copies, NCCL's collectives) count as idle here.
-    The methods patched exist on every tree since the device loop's
-    (``_run_program`` since the segments': older trees have no boundary),
-    so ``ab_trees.py`` runs this on earlier commits too."""
+    outside those calls); ``launches`` counts the marked calls.  Eager
+    kernels (a host loop's edges, the live counts' sums and copies, NCCL's
+    collectives) count as idle here.  The methods patched exist on every
+    tree since the device loop's (``_run_program`` since the segments':
+    older trees have no boundary; the scan's since its own), so
+    ``ab_trees.py`` runs this on earlier commits too."""
     import torch
 
     from ptx_torch.integrator import graphs as G
 
     spans, loops, programs = [], [], []
-    replay, loop = G.GraphRunner._replay, G.DeviceLoop._loop
+    replay = G.GraphRunner._replay
     program = getattr(G.GraphRunner, "_run_program", None)
+    # (class, method) marked as a launch's bounce loop.
+    marked_loops = [(G.DeviceLoop, "_loop")]
+    try:
+        from ptx_torch.diff.graphs import DeviceScan
+    except ImportError:  # a tree before the device scan's
+        pass
+    else:
+        marked_loops += [(DeviceScan, "_loop"), (DeviceScan, "_backward")]
+    originals = [(cls, name, getattr(cls, name)) for cls, name in marked_loops]
 
     def timed_replay(self, graph, tally):
         start = torch.cuda.Event(enable_timing=True)
@@ -2706,7 +2825,8 @@ def replay_split(run) -> dict:
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     G.GraphRunner._replay = timed_replay
-    G.DeviceLoop._loop = marked(loop, loops)
+    for cls, name, fn in originals:
+        setattr(cls, name, marked(fn, loops))
     if program is not None:
         G.GraphRunner._run_program = marked(program, programs)
     try:
@@ -2715,7 +2835,9 @@ def replay_split(run) -> dict:
         t1.record()
         t1.synchronize()
     finally:
-        G.GraphRunner._replay, G.DeviceLoop._loop = replay, loop
+        G.GraphRunner._replay = replay
+        for cls, name, fn in originals:
+            setattr(cls, name, fn)
         if program is not None:
             G.GraphRunner._run_program = program
     if not spans:
@@ -3277,7 +3399,6 @@ def scan_entry_points(fs, static, cfg, dev, small):
     from ptx_torch import render as R
     from ptx_torch.diff import graphs, inverse
 
-    take = inverse.takes_device_scan
     rerun = graphs.DeviceScan._recompute
     reruns = []
 
@@ -3288,12 +3409,8 @@ def scan_entry_points(fs, static, cfg, dev, small):
     def both(tag, fn):
         out = {}
         for name in ("host", "device"):
-            inverse.takes_device_scan = (
-                lambda *a, on=name == "device", **k: on)
-            try:
+            with scan_route(name):
                 out[name] = fn()
-            finally:
-                inverse.takes_device_scan = take
         (v_h, g_h), (v_d, g_d) = out["host"], out["device"]
         errs = {f: rel_l2(g_d[f], g_h[f]) for f in g_h}
         log(f"(f) {tag}: loss {float(v_d):.9g} device scan, {float(v_h):.9g} "

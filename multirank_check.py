@@ -41,11 +41,16 @@ over gloo (a rehearsal: plain versions, no launches).
 plan and sweeps launched and no plain version called, every rank's loss,
 gradients and parameters after one Adam step equal to rank 0's, rank 0's
 against the single card's ``make_batch_value_and_grad_fn`` within
-``chip_smoke.ROUTE_REL_L2`` (flipped pixels left out), then per rank
-grad-paths/s (the fastest of 3), scaling against the single card, the
-collective helpers' share of a step's wall and its bytes, and peak device
-memory.  A dp rank runs the device scan on a card, a tp rank the host scan
-(``run_train_layout`` raises otherwise); each line names the scan.
+``chip_smoke.ROUTE_REL_L2`` (flipped pixels left out), every rank on the
+device scan (a tp rank's steps cut into graph segments at its exchanges)
+and bit-equal to the host scan on the same exchanges in loss and
+gradients (``run_train_layout`` raises otherwise), then per rank
+grad-paths/s through the device scan and the host scan in 3 turns each
+(the fastest of the device scan's against the single card), the device
+scan's idle split over one value and gradient, its graphs, capture
+seconds, pool bytes and segments per step, the collective helpers' share
+of a step's wall, its calls and its bytes, and peak device memory of each
+scan.
 """
 
 from __future__ import annotations
@@ -115,25 +120,41 @@ def backward(scene, shape, dev, world, rank, cards, log):
         loss_err, errs, n_flips = smoke.compare_train_step(
             name, every, fs1, static1, cfg, dev, target, single_image)
         fastest = [min(r["walls"]) for r in every]
+        host = [min(w for route, w in r["turn_walls"] if route == "host")
+                for r in every]
         row = dict(layout=name, scan=[r["scan"] for r in every],
                    loss_rel=loss_err, grad_rel_l2=errs,
                    flipped_pixels=n_flips,
                    grad_paths_per_s=[paths / w for w in fastest],
                    speedup=one / max(fastest),
+                   host_grad_paths_per_s=[paths / w for w in host],
+                   host_speedup=one / max(host),
+                   turns=[[(route, paths / w) for route, w in r["turn_walls"]]
+                          for r in every],
                    collective_share=[r["collective_s"] / r["step_s"]
                                      for r in every],
+                   collective_calls=[r["collective_calls"] for r in every],
                    bytes_per_step=[r["bytes_per_step"] for r in every],
-                   peak_bytes=[r["peak_bytes"] for r in every])
+                   peak_bytes=[r["peak_bytes"] for r in every],
+                   programs=[r["programs"] for r in every],
+                   split=[r.get("split") for r in every])
         rows.append(row)
-        log(f"{name} ({', '.join(sorted(set(row['scan'])))} scan): "
+        log(f"{name} ({', '.join(sorted(set(row['scan'])))} scan, loss and "
+            "gradients bit-equal to the host scan on every rank): "
             "grad-paths/s per rank "
             f"{', '.join(f'{g:,.0f}' for g in row['grad_paths_per_s'])} "
-            f"({row['speedup']:.2f}x one card); loss {loss_err:.3g}, "
+            f"({row['speedup']:.2f}x one card; the host scan "
+            f"{', '.join(f'{g:,.0f}' for g in row['host_grad_paths_per_s'])}"
+            f", {row['host_speedup']:.2f}x); loss {loss_err:.3g}, "
             f"gradients relative L2 {max(errs.values()):.3g} ({n_flips} "
             "flipped pixels left out), ranks bit-equal; collectives "
             f"{', '.join(f'{100 * c:.1f}' for c in row['collective_share'])} "
             f"% of each rank's step, {row['bytes_per_step'][0]:,} bytes per "
-            f"step per rank; peak {row['peak_bytes']} bytes ({cards[0]})")
+            f"step per rank ({cards[0]})")
+        for r, t in enumerate(every):
+            smoke.log_train_rank(f"rank {r} {name}", t, paths, cards[r],
+                                 "one rank per card, NCCL" if dev.type ==
+                                 "cuda" else "gloo on the CPU")
     log(json.dumps({"single_grad_paths_per_s": paths / one if rank == 0 else None,
                     "cards": cards, "layouts": rows}))
 

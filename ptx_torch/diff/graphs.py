@@ -6,11 +6,11 @@ scan's ``lax.scan`` in ``ptx/integrator/wavefront.py``).
 
 :class:`DeviceScan` is the differentiable integrator ``(fs, pixel_ids,
 sample_ids) -> (radiance [R, 3], alpha [R])`` of one scene
-(``diff.inverse.make_diff_integrator`` on a CUDA device).  It runs the
-schedule of the host scan ``wavefront.make_integrator(...,
-differentiable=True)`` -- up to ``max_iters`` full-width bounce steps, no
-compaction, dead lanes parked -- with three changes that leave the loss
-bit-identical to it:
+(``diff.inverse.make_diff_integrator`` on a CUDA device, a tp rank's
+included).  It runs the schedule of the host scan
+``wavefront.make_integrator(..., differentiable=True)`` -- up to
+``max_iters`` full-width bounce steps, no compaction, dead lanes parked --
+with three changes that leave the loss bit-identical to it:
 
 * **Static buffers.**  Each launch shape (``r`` lanes) has an initial
   state of its own, and step ``it`` of it reads its predecessor's outputs
@@ -26,6 +26,9 @@ bit-identical to it:
   DeviceLoop``: after it enqueues step ``i`` the scan copies the live count
   ``c_{i+1}`` into pinned host memory and records an event; before step
   ``i + 1`` it waits only on the event of ``c_i``, never on the device.
+  On a tp rank the count is the world's largest (``live_sync``: a
+  device-side max under NCCL, staged through the host under gloo), as the
+  host scan's is, so every rank runs the same steps.
   Step ``i`` runs while ``c_{i-1} > 0`` where the host scan's runs while
   ``c_i > 0``: at most one all-dead step past the end.  A step is the
   identity on dead lanes and its backward passes their cotangents through
@@ -36,16 +39,35 @@ bit-identical to it:
 * **CUDA graphs of each step's forward and backward.**  On a CUDA device
   step ``it`` of a launch shape is captured on first use, into one memory
   pool: its forward under autograd (the state fields that carry a gradient
-  and the parameter buffers as leaves) into one graph, and
-  ``torch.autograd.grad`` of it into a second, which writes the cotangents
-  of the step's inputs into its predecessor's cotangent buffers and the
-  parameters' running sums in place.  The backward is captured with
-  ``retain_graph``, so the forward's residuals keep their pool memory.
-  ``it`` is baked into the RNG constants, so graphs are keyed by (launch
-  shape, ``it``).  Before a shape's first capture one step runs eagerly,
-  forward and backward, so module loads and ``utils.device_constant``
+  and the parameter buffers as leaves) as a program
+  (``GraphRunner._program``), and ``torch.autograd.grad`` of it as one
+  graph, which writes the cotangents of the step's inputs into its
+  predecessor's cotangent buffers and the parameters' running sums in
+  place.  The backward is captured with ``retain_graph``, so the
+  forward's residuals keep their pool memory.  ``it`` is baked into the
+  RNG constants, so graphs are keyed by (launch shape, ``it``).  Before a
+  shape's first capture one step runs eagerly, forward and backward, so
+  module loads, ``utils.device_constant`` and a communicator's set-up
   happen outside capture.  Each graph keeps the kernel launches its
   capture counted and adds them to ``_build.LAUNCHES`` on every replay.
+
+A tp rank's step holds its exchanges (the counterpart of the collectives
+inside ``ptx``'s ``shard_map`` of the scan): the closest hit's reduce or
+ring shifts, the occlusion max, a sharded texel pack's sums, each an
+exchange point (``integrator.graphs.exchange``).  The forward's capture is
+cut at each of them, so a step's forward is a program of segments -- graph,
+exchange, graph, ... -- replayed in capture order with each exchange run
+between two replays, as ``integrator.graphs.DeviceLoop`` runs a tp chunk
+step.  The capture runs the program once (each segment replayed at its
+cut), and that run is the step's first: each exchange runs once per step
+on every rank.  The exchanges' tensors are made inside the capture and
+held by the program; the residuals of every segment are held by the
+step's autograd graph (``_settle``), which the backward graph reads for as
+long as the scan lives.  No exchange carries a gradient (each is an
+all-reduce or a shift of a copy), so ``autograd.grad`` of a step issues no
+collective and its backward stays one graph; an exchange reached inside
+that capture raises.  A step without exchanges is a program of one
+segment: the one-card and dp routes.
 
 Why neither ``torch.cuda.make_graphed_callables`` nor one graph of a whole
 chunk's ``autograd.grad``: the trip count is decided on the host from the
@@ -63,10 +85,17 @@ reads its own forward's residuals.  Each step ends with a view of each
 parameter whose cotangent is the running sum, so autograd adds a step's
 terms to it one by one, in the order of the host scan's backward.
 
-A failed capture, or a sync inside a captured step, raises; nothing falls
-back to the host scan.  On CPU tensors the scan runs the same schedule
-(buffers, lagged count, dead step, a backward per step) without capture;
-the CPU tests hold it to the host scan bit for bit.
+The eager edges run on every rank at the same points: the warm-up of a
+launch shape's first use, and the rerun of a stale forward (exchanges
+included) before its backward.  Every rank makes the same launch shapes
+and loss calls in the same order (``parallel.dist`` cuts every rank's
+slice alike), so these points match across the world.
+
+A failed capture, a sync inside a captured segment, or an exchange inside
+a backward capture raises; nothing falls back to the host scan.  On CPU
+tensors the scan runs the same schedule (buffers, lagged count, dead step,
+a backward per step, the exchanges eagerly) without capture; the CPU tests
+hold it to the host scan bit for bit, tp ranks included.
 """
 
 from __future__ import annotations
@@ -110,15 +139,18 @@ class _Step:
     """Bounce step ``it`` of one launch shape.  ``fields``: its outputs that
     carry a gradient, ``gout``: their cotangents; ``ins`` / ``out`` /
     ``seeds``: its last run under autograd (on a CUDA device the capture's,
-    whose memory the graphs read and write); ``graphs``: the forward and
-    backward graphs and the kernel launches each holds."""
+    whose memory the graphs read and write); on a CUDA device
+    ``forward``, the forward's program (``[graph, tally, exchange]``
+    segments, one more than its exchanges), and ``backward``, the
+    backward's graph and the kernel launches it holds (None while no
+    parameter takes a gradient)."""
 
-    def __init__(self, it: int, prev):
-        self.it, self.prev = it, prev
+    def __init__(self, it: int, prev, cuda: bool):
+        self.it, self.prev, self.cuda = it, prev, cuda
         self.fields: Optional[Tuple[str, ...]] = None
         self.gout = {}
         self.ins = self.out = self.seeds = None
-        self.graphs = None
+        self.forward = self.backward = None
 
 
 def _versions(call) -> list:
@@ -156,14 +188,19 @@ class DeviceScan(GraphRunner):
     raises); ``copy_fields``: fields copied in per call without a gradient
     (a geometry set's repacked tiles).  Read by ``chip_smoke.py`` as an
     ``integrator.graphs.GraphRunner``, and its :meth:`schedule` (the last
-    call's steps against the host scan's)."""
+    call's steps against the host scan's).  A tp rank's hooks, as
+    ``wavefront.make_integrator`` takes them: ``live_sync`` maps this
+    rank's live count, a tensor, to the world's largest; ``tex_shard``
+    (``textures.TexShard``) sums a scene-sharded texel pack over the row."""
 
     def __init__(self, static: SceneStatic, cfg: RenderConfig, closest,
                  any_hit, grad_fields: Sequence[str],
-                 copy_fields: Sequence[str] = ()):
+                 copy_fields: Sequence[str] = (), live_sync=None,
+                 tex_shard=None):
         super().__init__()
         self.static, self.cfg = static, cfg
-        self.step = make_step(static, cfg, closest, any_hit)
+        self.step = make_step(static, cfg, closest, any_hit, tex_shard)
+        self.live_sync = live_sync
         self.max_iters = max_iterations(static, cfg)
         self.grad_fields = tuple(grad_fields)
         self.copy_fields = tuple(copy_fields)
@@ -248,9 +285,12 @@ class DeviceScan(GraphRunner):
     def _warm_up(self, launch: _Launch):
         """One step, forward and backward, eagerly on a copy of the
         launch's initial state, before the shape's first capture: what a
-        kernel or a constant sets up on first use happens outside capture.
-        The first warm-up also finds the grad fields the step
-        differentiates; the others get no running sum and no gradient."""
+        kernel, a constant or a communicator sets up on first use happens
+        outside capture.  A tp rank's exchanges run here eagerly; every
+        rank warms up at the same point, since each makes the same launch
+        shapes in the same order.  The first warm-up also finds the grad
+        fields the step differentiates; the others get no running sum and
+        no gradient."""
         with torch.enable_grad():
             ins = RayState(*(x.detach().clone().requires_grad_(
                 x.is_floating_point()) for x in launch.out))
@@ -278,7 +318,10 @@ class DeviceScan(GraphRunner):
                 break
             step = self._step(launch, it)
             self._run_forward(step)
-            launch.counts[it + 1].copy_(step.out.alive.sum(), non_blocking=True)
+            live = step.out.alive.sum()
+            if self.live_sync is not None:
+                live = self.live_sync(live)
+            launch.counts[it + 1].copy_(live, non_blocking=True)
             if launch.cuda:
                 launch.events[it + 1].record()
             steps.append(step)
@@ -287,10 +330,8 @@ class DeviceScan(GraphRunner):
 
     def _step(self, launch: _Launch, it: int) -> _Step:
         if it == len(launch.steps):
-            step = _Step(it, launch.steps[-1] if it else launch)
-            launch.steps.append(step)
-            if launch.cuda:
-                self._capture(step)
+            launch.steps.append(_Step(it, launch.steps[-1] if it else launch,
+                                      launch.cuda))
         return launch.steps[it]
 
     def _forward_body(self, step: _Step):
@@ -322,10 +363,15 @@ class DeviceScan(GraphRunner):
         step.ins, step.out, step.seeds = ins, out, seeds
 
     def _run_forward(self, step: _Step):
-        if step.graphs is None:
+        """The step's forward: eagerly under autograd on the CPU; on a CUDA
+        device its program, captured on first use (the capture's run is the
+        step's first run), replayed after that."""
+        if not step.cuda:
             self._settle(step, *self._forward_body(step))
+        elif step.forward is None:
+            self._capture(step)
         else:
-            self._replay(step.graphs[0], step.graphs[2])
+            self._run_program(step.forward)
 
     # ----------------------------------------------------------------------
     # Backward
@@ -353,7 +399,9 @@ class DeviceScan(GraphRunner):
 
     def _recompute(self, ctx):
         """``ctx``'s forward again, its steps from the inputs it kept: a
-        later forward overwrote the residuals its backward reads."""
+        later forward overwrote the residuals its backward reads.  A tp
+        rank's exchanges run again with them; every rank reruns at the
+        same point (the same loss calls in the same order)."""
         if _versions(ctx.call) != ctx.versions:
             raise RuntimeError("a tensor the scan read was modified in place "
                                "before its backward")
@@ -386,23 +434,24 @@ class DeviceScan(GraphRunner):
                 self._acc[f].copy_(g)
 
     def _run_backward(self, step: _Step):
-        if step.graphs is None:
+        if not step.cuda:
             self._backward_body(step)
         else:
-            self._replay(step.graphs[1], step.graphs[3])
+            self._replay(*step.backward)
 
     # ----------------------------------------------------------------------
     # Graphs
     # ----------------------------------------------------------------------
 
     def _capture(self, step: _Step):
-        """The step's forward and backward graphs (the forward's run kept on
-        the step).  Raises if a capture fails."""
-        fwd, f_tally, run = self._graph(lambda: self._forward_body(step))
+        """The step's forward program, cut at its exchanges and run once
+        meanwhile (its run kept on the step), then its backward graph, which
+        may hold no exchange.  Raises if a capture fails."""
+        step.forward, run = self._program(lambda: self._forward_body(step))
         self._settle(step, *run)
-        bwd, b_tally, _ = (self._graph(lambda: self._backward_body(step))
-                           if self._used else (None, {}, None))
-        step.graphs = (fwd, bwd, f_tally, b_tally)
+        if self._used:
+            graph, tally, _ = self._graph(lambda: self._backward_body(step))
+            step.backward = (graph, tally)
 
     def schedule(self) -> dict:
         """The last call's schedule from its live counts (waits for the

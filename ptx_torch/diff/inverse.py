@@ -146,11 +146,10 @@ def scan_fields(param_fields: Sequence[str]):
     return tuple(grad), tuple(copy)
 
 
-def takes_device_scan(device, live_sync=None, tex_shard=None) -> bool:
-    """The rule of :func:`make_diff_integrator`: a CUDA device whose step
-    holds no collective."""
-    return (torch.device(device).type == "cuda" and live_sync is None
-            and tex_shard is None)
+def takes_device_scan(device) -> bool:
+    """The rule of :func:`make_diff_integrator`: a CUDA device, whatever
+    collectives the step holds."""
+    return torch.device(device).type == "cuda"
 
 
 def make_diff_integrator(static, cfg, closest, any_hit, param_fields, device,
@@ -160,18 +159,18 @@ def make_diff_integrator(static, cfg, closest, any_hit, param_fields, device,
     around it).  On a CUDA device it is the device scan
     (``ptx_torch.diff.graphs.DeviceScan``: CUDA graphs of each step's
     forward and backward, the live count read one iteration late), one per
-    scene, by :func:`takes_device_scan`.  Three routes keep the host scan
-    (``make_integrator(differentiable=True)``): a step that holds
-    collectives (``live_sync`` or ``tex_shard``: tp ranks, whose exchanges
-    run through gloo or NCCL outside capture); the CPU, where the host scan
-    is the reference the tests hold the device scan to (as
-    ``chip_smoke.py`` does on the card); and the fast path's replay
-    (``ptx_torch.diff.fast``), a route of its own."""
-    if takes_device_scan(device, live_sync, tex_shard):
+    scene, by :func:`takes_device_scan`; a tp rank's ``live_sync`` and
+    ``tex_shard`` go to it, and its forward is cut into graph segments at
+    the exchanges.  The host scan (``make_integrator(differentiable=True)``
+    with the same hooks) is the CPU's route, the reference the tests hold
+    the device scan to (as ``chip_smoke.py`` does on the card); the fast
+    path's replay (``ptx_torch.diff.fast``) is a route of its own."""
+    if takes_device_scan(device):
         from ptx_torch.diff.graphs import DeviceScan
 
         return DeviceScan(static, cfg, closest, any_hit,
-                          *scan_fields(param_fields))
+                          *scan_fields(param_fields), live_sync=live_sync,
+                          tex_shard=tex_shard)
     return make_integrator(static, cfg, closest, any_hit, differentiable=True,
                            live_sync=live_sync, tex_shard=tex_shard)
 

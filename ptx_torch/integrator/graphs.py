@@ -81,8 +81,22 @@ from ptx_torch.scene.flatten import FlatScene, SceneStatic
 
 
 # The runner whose program capture :func:`exchange` cuts (None: an exchange
-# runs eagerly).
+# runs eagerly; :data:`_REFUSE` inside a single-graph capture).
 _CUTTER = None
+
+
+class _Refuse:
+    """The cutter of a capture that may hold no exchange
+    (:meth:`GraphRunner._graph`)."""
+
+    @staticmethod
+    def _cut(op, src, dst):
+        raise RuntimeError(
+            "an exchange inside a single-graph capture: a collective there "
+            "would not run between replays (capture the unit as a program)")
+
+
+_REFUSE = _Refuse()
 
 
 def exchange(op, src, dst):
@@ -95,7 +109,9 @@ def exchange(op, src, dst):
     of the program replays the graph, runs ``op`` on the same two tensors,
     replays the next graph, and so on.  So ``src`` and ``dst`` must be made
     inside the capture (they then sit in the graph pool, and the program
-    holds them at their addresses) or outlive the program."""
+    holds them at their addresses) or outlive the program.  Inside a
+    single-graph capture (:meth:`GraphRunner._graph`: the device scan's
+    backward) it raises, and ``op`` does not run."""
     if _CUTTER is None:
         op(src, dst)
     else:
@@ -135,9 +151,8 @@ class GraphRunner:
         segments (``tally``: the launches the wrappers counted meanwhile,
         taken back out of ``_build.LAUNCHES``: a capture launches nothing;
         ``exchange``: the ``(op, src, dst)`` that follows the segment, None
-        for the last).  Without ``cuts`` an exchange inside ``fn`` runs in
-        the capture (and a collective there fails it): one segment.  Raises
-        if a capture fails.
+        for the last).  Without ``cuts`` the work is one segment, and an
+        exchange reached inside ``fn`` raises.  Raises if a capture fails.
 
         The garbage collector is off during the capture: a collection
         there may free another runner's graphs and memory pool, and the
@@ -154,7 +169,7 @@ class GraphRunner:
         try:
             with torch.cuda.stream(self._stream):
                 self._begin_graph()
-                _CUTTER = self if cuts else None
+                _CUTTER = self if cuts else _REFUSE
                 try:
                     result = fn()
                 finally:
@@ -201,17 +216,19 @@ class GraphRunner:
 
     def _graph(self, fn):
         """``(graph, tally, fn())``: ``fn``'s work captured as one graph
-        (:meth:`_record` without cuts), not run."""
+        (:meth:`_record` without cuts: an exchange inside raises), not
+        run."""
         ((graph, tally, _),), result = self._record(fn, cuts=False)
         return graph, tally, result
 
     def _program(self, fn):
-        """``fn``'s work captured as a program cut at its exchanges, and run
-        once meanwhile (each segment replayed at its cut, the last one after
-        the capture); returns its segments."""
-        segments, _ = self._record(fn, cuts=True)
+        """``(segments, fn())``: ``fn``'s work captured as a program cut at
+        its exchanges, and run once meanwhile (each segment replayed at its
+        cut, the last one after the capture), so the capture is the unit's
+        first run: each exchange runs once."""
+        segments, result = self._record(fn, cuts=True)
         self._replay(*segments[-1][:2])
-        return segments
+        return segments, result
 
     def _run(self, graphs: dict, key, fn, cuda: bool, warm=None):
         """``fn()`` on the CPU; on a CUDA device the program
@@ -225,7 +242,7 @@ class GraphRunner:
         if segments is None:
             if warm is not None:
                 warm()
-            graphs[key] = self._program(fn)
+            graphs[key], _ = self._program(fn)
         else:
             self._run_program(segments)
 

@@ -35,7 +35,10 @@ A tp rank renders on the device pass, as a dp rank does
 an exchange point (``integrator.graphs.exchange``) that cuts the step's
 CUDA graph into segments, and runs between their replays, on the stream
 (NCCL) or staged through the host (gloo); the live counts are reduced on
-the device and read one iteration late.
+the device and read one iteration late.  Its value and gradient runs on
+the device scan (``diff.graphs.DeviceScan``) the same way: each bounce
+step's forward is cut at the same exchange points, and its backward,
+through which no exchange carries a gradient, is one graph.
 
 The collective helpers (:func:`all_reduce`, :func:`all_gather`,
 :func:`ring_shift`) are the one place that talks to ``torch.distributed``.
@@ -128,12 +131,15 @@ def _collective(mesh, src, dst, run):
 
 def all_reduce(mesh, x, op: str, group):
     """``op`` ("sum", "min", "max") of ``x`` over ``group`` (None: the
-    world), in place on a copy of ``x`` (made where the call runs: inside a
-    capture, in the graph pool); a bool is reduced as int32 and comes back
-    int32."""
+    world), in place on a detached copy of ``x`` (made where the call runs:
+    inside a capture, in the graph pool; no exchange carries a gradient, so
+    no backward, not even the device scan's warm-up with every state field
+    a leaf, runs through a collective); a bool is reduced as int32 and
+    comes back int32."""
     import torch.distributed as dist
 
-    y = (x.to(torch.int32) if x.dtype == torch.bool else x.clone()).contiguous()
+    y = (x.to(torch.int32) if x.dtype == torch.bool
+         else x.detach().clone()).contiguous()
     red = getattr(dist.ReduceOp, op.upper())
 
     def run(y, _):
@@ -501,10 +507,10 @@ def diff_integrator(static: SceneStatic, cfg: RenderConfig, mesh,
     """This rank's general differentiable scan
     (``diff.inverse.make_diff_integrator``) on ``diff.inverse.diff_backend``
     with the exchanges of :func:`make_distributed_sample_fn` and
-    ``live_sync`` around it: on a CUDA rank whose scene is not sharded (dp)
-    the device scan, on a tp rank the host scan (the device scan does not
-    yet cut a forward under autograd at its exchanges, as the device loop
-    does)."""
+    ``live_sync`` around it: on every CUDA rank (dp, tp reduce and ring,
+    dp x tp, a sharded texel pack) the device scan, whose forward steps a
+    tp rank's exchanges cut into graph segments; on the CPU the host
+    scan."""
     from ptx_torch import render as R
     from ptx_torch.diff import inverse
 
@@ -538,9 +544,9 @@ def make_distributed_value_and_grad_fn(
 
     Each rank runs the one-device body on its slice
     (:func:`pixel_range`, cut into chunks and sample groups as one device
-    cuts the frame) through :func:`diff_integrator`, whose ``live_sync``
-    makes every rank step the scan, and each sample group's two forwards
-    and its backward, in the same order.  The slices' losses and
+    cuts the frame) through :func:`diff_integrator` (the device scan on a
+    card), whose ``live_sync`` makes every rank step the scan, and each
+    sample group's two forwards and its backward, in the same order.  The slices' losses and
     gradients are summed over the world in one :func:`all_reduce`; in
     reduce mode the tp ranks of a row trace the same pixels, so the sum is
     divided by tp (``ptx``'s shard_map transpose does the same to a
@@ -601,8 +607,9 @@ def make_distributed_train_step(
     """One inverse-rendering step on every rank (the counterpart of the
     shard_map training step ``ptx`` runs on a dp x tp mesh):
     ``step(params, opt, fs_local) -> loss`` runs one value and gradient of
-    :func:`make_distributed_value_and_grad_fn` and one Adam update of
-    ``params`` in place.  Each rank keeps a replica of the parameters and
+    :func:`make_distributed_value_and_grad_fn` (on a card every rank's
+    scan is the device scan, a tp rank's exchanges between its graph
+    segments) and one Adam update of ``params`` in place.  Each rank keeps a replica of the parameters and
     of the optimizer state; every rank gets the same gradients, so the
     replicas stay bit-equal.  ``step.init(init_params) -> (params, opt)``
     makes the leaves and ``diff.inverse.adam`` over them at ``lr``."""

@@ -12,8 +12,10 @@ also ``<case>.host.rank<r>.npz``, the same render with the fused step on
 the host loop, and the route its sample pass took; a ``grad`` case: one
 step of
 ``dist.make_distributed_train_step``, its loss, gradients and parameters
-after the Adam update, or the ``ValueError`` it raised and the collective
-calls made before it); then, in ``mesh.rank<r>.json``,
+after the Adam update and the class of its integrator, or the
+``ValueError`` it raised and the collective calls made before it; a case
+of :data:`DEVICE_SCAN` also ``<case>.scan.rank<r>.npz``, the same step on
+the device scan); then, in ``mesh.rank<r>.json``,
 whether every mesh of a layout reused the groups of its first.  Imports
 only ``ptx_torch`` and numpy; the test imports :data:`CASES` and builds
 the references.
@@ -96,6 +98,10 @@ def _cases():
         # before its own backward.
         ("grad_groups_dp1_tp2_reduce", 2, 1, 2, "reduce", "brute",
          dict(samples=2, width=4, height=4, max_chunk_rays=1)),
+        # Materials on a sharded texel pack: the texel gathers' sums inside
+        # every bounce step.
+        ("grad_tex_tp2_sharded", 2, 1, 2, "reduce", "brute",
+         dict(scene="textured", shard_textures=True, width=16, height=16)),
         ("grad_refuse_tri_a_tp2", 2, 1, 2, "reduce", "brute",
          dict(params=("tri_a",))),
         ("grad_refuse_tex_texels_sharded", 2, 1, 2, "reduce", "brute",
@@ -117,6 +123,17 @@ HOST_LOOP = ("compact_dp1_tp2_reduce", "compact_dp1_tp2_ring",
              "compact_dp2_tp2_ring", "tex_tp2_sharded")
 
 
+# The tp training steps run again on the device scan
+# (``diff.graphs.DeviceScan``: each bounce step's forward cut at its
+# exchanges; forced on the CPU, where it runs its schedule without
+# capture), which must equal the host scan's bit for bit: reduce with a sun,
+# ring, a 2 x 2 layout, sample groups (a stale forward rerun with its
+# exchanges) and a sharded texel pack.
+DEVICE_SCAN = ("grad_dp1_tp2_reduce_pallas", "grad_dp1_tp2_ring_brute",
+               "grad_dp2_tp2_reduce_pallas", "grad_groups_dp1_tp2_reduce",
+               "grad_tex_tp2_sharded")
+
+
 def grad_target(cfg):
     """The training step's target image [W * H, 3], from TARGET_SEED."""
     import numpy as np
@@ -125,17 +142,31 @@ def grad_target(cfg):
     return rng.uniform(0.0, 1.0, (cfg.width * cfg.height, 3)).astype(np.float32)
 
 
-def train_step(fs, static, spec, plan, mesh):
+def train_step(fs, static, spec, plan, mesh, device_scan=False):
     """One distributed training step of a ``grad`` case on this rank: its
-    loss, gradients and parameters after the update, or the refusal's
-    message and the collective calls made before it."""
+    loss, gradients and parameters after the update and the class of the
+    integrator ``dist.diff_integrator`` made (``route``), or the refusal's
+    message and the collective calls made before it.  ``device_scan``:
+    the step on the device scan (``inverse.takes_device_scan`` answering
+    yes on the CPU), else the CPU's own route, the host scan."""
     import torch
 
+    from ptx_torch.diff import inverse
     from ptx_torch.parallel import dist as pdist
 
     cfg = config(spec)
     fs, static = pdist.prepare_scene(fs, static, cfg, plan, mesh, "cpu")
     calls = pdist.STATS.calls
+    take, make, routes = inverse.takes_device_scan, pdist.diff_integrator, []
+
+    def recorded(*args, **kwargs):
+        integrator = make(*args, **kwargs)
+        routes.append(type(integrator).__name__)
+        return integrator
+
+    pdist.diff_integrator = recorded
+    if device_scan:
+        inverse.takes_device_scan = lambda device: True
     try:
         step = pdist.make_distributed_train_step(
             static, cfg, mesh, plan, torch.from_numpy(grad_target(cfg)),
@@ -143,9 +174,11 @@ def train_step(fs, static, spec, plan, mesh):
             device="cpu", lr=LR)
     except ValueError as e:
         return dict(refused=str(e), calls=pdist.STATS.calls - calls)
+    finally:
+        pdist.diff_integrator, inverse.takes_device_scan = make, take
     params, opt = step.init({f: getattr(fs, f) for f in spec["params"]})
     loss = step(params, opt, fs)
-    out = dict(loss=loss.numpy())
+    out = dict(loss=loss.numpy(), route=routes)
     for f, p in params.items():
         out[f"grad.{f}"] = p.grad.numpy()
         out[f"param.{f}"] = p.detach().numpy()
@@ -272,6 +305,10 @@ def main(out_dir: str) -> int:
         elif spec["kind"] == "grad":
             np.savez(os.path.join(out_dir, f"{name}.rank{rank}.npz"),
                      **train_step(fs, static, spec, plan, mesh))
+            if name in DEVICE_SCAN:
+                np.savez(os.path.join(out_dir, f"{name}.scan.rank{rank}.npz"),
+                         **train_step(fs, static, spec, plan, mesh,
+                                      device_scan=True))
         print(f"rank {rank}: {name} done", flush=True)
     with open(os.path.join(out_dir, f"mesh.rank{rank}.json"), "w") as f:
         json.dump(dict(layouts=len(groups), meshes=len(reused),

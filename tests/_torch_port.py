@@ -1,5 +1,6 @@
 """Carry the JAX package's host objects over to the port's own classes,
-and hold torch to one intra-op thread per test process.
+hold torch to one intra-op thread per test process, and stub CUDA's graph
+calls for the device programs' bookkeeping tests.
 
 The port (``ptx_torch``) keeps its own copies of ``ptx.config`` and
 ``ptx.scene.flatten`` and refuses the JAX package's classes.  Parity tests
@@ -60,3 +61,37 @@ def jax_params(params):
     import jax.numpy as jnp
 
     return {k: jnp.asarray(v.detach().cpu().numpy()) for k, v in params.items()}
+
+
+class FakeGraph:
+    """A CUDA graph's calls, logged (the CPU has none to capture: the work
+    a capture would record runs at once, and a replay runs nothing)."""
+
+    made, log = [], []
+
+    def __init__(self):
+        self.n = len(FakeGraph.made)
+        FakeGraph.made.append(self)
+
+    def capture_begin(self, pool, capture_error_mode):
+        FakeGraph.log.append(f"begin {self.n}")
+
+    def capture_end(self):
+        FakeGraph.log.append(f"end {self.n}")
+
+    def replay(self):
+        FakeGraph.log.append(f"replay {self.n}")
+
+
+def stub_cuda_graphs(monkeypatch) -> list:
+    """``integrator.graphs.GraphRunner``'s CUDA calls (graphs, their pool,
+    streams) stubbed with :class:`FakeGraph`; returns its log, empty."""
+    from contextlib import nullcontext
+
+    FakeGraph.log, FakeGraph.made = [], []
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", FakeGraph)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: "pool")
+    monkeypatch.setattr(torch.cuda, "Stream", lambda: "side")
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: "outer")
+    monkeypatch.setattr(torch.cuda, "stream", lambda s: nullcontext())
+    return FakeGraph.log

@@ -7,8 +7,10 @@ bit for bit through ``inverse.slice_value_and_grad_fn`` (the body of
 ``make_batch_value_and_grad_fn``), on ``arch:2000`` with the tile
 traversal's plain versions.  The JAX package's ``ptx.diff.inverse`` holds
 the host scan (``tests/test_torch_inverse.py``, which also runs one case
-through the device scan).  The routes to each scan are checked without a
-card.
+through the device scan).  The routes to each scan, and a tp rank's
+captures (CUDA's calls stubbed), are checked without a card; the tp ranks'
+scans are held to the host scan in the gloo worlds of
+``tests/test_torch_parallel.py``.
 """
 
 import dataclasses
@@ -24,7 +26,7 @@ from ptx_torch.diff import graphs, inverse
 from ptx_torch.integrator.wavefront import make_integrator
 from ptx_torch.parallel import dist
 from ptx_torch.parallel.mesh import Plan
-import _torch_port  # noqa: F401  (one torch thread per test process)
+from _torch_port import stub_cuda_graphs
 
 SCENE = "arch:2000"
 MATERIALS = ("mat_albedo", "mat_emissive", "mat_roughness", "sun_energy")
@@ -177,9 +179,11 @@ def test_another_scene_raises():
 
 
 def test_routes_to_each_scan():
-    """The device scan on a CUDA device (built without touching one), the
-    host scan on the CPU and wherever the step holds collectives: a
-    ``live_sync`` or a tp rank's exchanges."""
+    """The device scan on a CUDA device (built without touching one),
+    whatever collectives the step holds (a ``live_sync``, a tp rank's
+    exchanges in reduce and ring mode, a sharded texel pack's sums, which
+    it takes as its hooks); the host scan on the CPU, with the same
+    hooks."""
     cfg = RenderConfig(width=16, height=8, samples=1, bounces=2,
                        intersector="pallas")
     fs, static = render.ensure_accel(*_scene(), cfg)
@@ -193,8 +197,12 @@ def test_routes_to_each_scan():
                 == inverse.scan_fields(fields))
         assert not isinstance(inverse._resolve_diff_integrator(
             static, cfg, *pair, fields, "cpu"), graphs.DeviceScan)
+    sync = lambda n: n  # noqa: E731
+    scan = inverse.make_diff_integrator(static, cfg, *pair, MATERIALS, "cuda",
+                                        live_sync=sync)
+    assert isinstance(scan, graphs.DeviceScan) and scan.live_sync is sync
     assert not isinstance(inverse.make_diff_integrator(
-        static, cfg, *pair, MATERIALS, "cuda", live_sync=lambda n: n),
+        static, cfg, *pair, MATERIALS, "cpu", live_sync=sync),
         graphs.DeviceScan)
     dp = Plan(dp=2, tp=1, scene_sharded=False)
     assert isinstance(dist.diff_integrator(static, cfg, None, dp, "reduce",
@@ -203,7 +211,121 @@ def test_routes_to_each_scan():
     tp = Plan(dp=1, tp=2, scene_sharded=True)
     static_tp = dataclasses.replace(static, shard_local=True)
     mesh = types.SimpleNamespace(plan=tp, tp_group=None, tp_index=0)
-    for comm in ("reduce", "ring"):
+    for layout, comm, st in [
+            (tp, "reduce", static_tp), (tp, "ring", static_tp),
+            (Plan(dp=2, tp=2, scene_sharded=True), "reduce", static_tp),
+            (Plan(dp=1, tp=2, scene_sharded=True, shard_textures=True),
+             "reduce", dataclasses.replace(static_tp, tex_shard_len=16))]:
+        mesh.plan = layout
+        scan = dist.diff_integrator(st, cfg, mesh, layout, comm, MATERIALS,
+                                    "cuda")
+        assert isinstance(scan, graphs.DeviceScan), (layout, comm)
+        assert scan.live_sync is not None
         assert not isinstance(dist.diff_integrator(
-            static_tp, cfg, mesh, tp, comm, MATERIALS, "cuda"),
-            graphs.DeviceScan)
+            st, cfg, mesh, layout, comm, MATERIALS, "cpu"), graphs.DeviceScan)
+
+
+class _FakeEvent:
+    def record(self):
+        pass
+
+    def synchronize(self):
+        pass
+
+
+def test_tp_step_capture_bookkeeping(monkeypatch):
+    """A tp rank's device scan with CUDA's calls stubbed (the work a capture
+    would record runs at once, a replay runs nothing) and its row's
+    collectives logged (reduce mode, a world of one): each step's forward
+    is a program of one segment per exchange plus one (the closest hit's
+    key and payload, the occlusion max: four), its backward one graph; a
+    step's first use runs each exchange once (its capture is that run),
+    then the world's live count; a later call replays each program with its
+    exchanges in capture order; a backward issues no exchange, and a stale
+    forward's rerun before its backward runs each exchange once more; an
+    exchange reached inside a backward capture raises before it runs."""
+    from ptx_torch.kernels import _build
+
+    cfg = RenderConfig(width=16, height=8, samples=1, bounces=2,
+                       intersector="pallas")
+    fs, static = render.ensure_accel(*_scene(), cfg, device="cpu")
+    assert static.has_sun  # so each step also runs the occlusion max
+    log = stub_cuda_graphs(monkeypatch)
+    _build.reset_launches()
+    monkeypatch.setattr(torch.distributed, "all_reduce",
+                        lambda y, op, group: log.append("collective"))
+    init = graphs._Launch.__init__
+
+    def cuda_launch(self, r, device, max_iters):
+        init(self, r, device, max_iters)
+        self.cuda = True
+        self.events = [_FakeEvent() for _ in range(max_iters + 1)]
+
+    monkeypatch.setattr(graphs._Launch, "__init__", cuda_launch)
+    plan = Plan(dp=1, tp=2, scene_sharded=True)
+    mesh = types.SimpleNamespace(plan=plan, tp_group=None, tp_index=0,
+                                 staging=False)
+    fields = ("mat_albedo", "mat_emissive")
+    closest, any_hit, live_sync, tex_shard = dist._exchanges(
+        static, mesh, plan, "reduce", *render.get_backend(static, cfg, "cpu"))
+    scan = graphs.DeviceScan(static, cfg, closest, any_hit,
+                             *inverse.scan_fields(fields),
+                             live_sync=live_sync, tex_shard=tex_shard)
+    pix = torch.arange(128, dtype=torch.int32)
+    smp = torch.zeros_like(pix)
+    leaves = {f: getattr(fs, f).detach().requires_grad_() for f in fields}
+
+    def logged(fn):
+        first = len(log)
+        out = fn()
+        return out, log[first:]
+
+    def call():
+        return scan(inverse.inject_params(fs, leaves), pix, smp)[0]
+
+    r1, first = logged(call)
+    launch = scan._launches[128]
+    steps = launch.steps
+    assert len(steps) == scan.schedule()["steps"] >= 2
+    for step in steps:
+        assert [ex is not None for _, _, ex in step.forward] == [
+            True, True, True, False]
+        assert isinstance(step.backward[0], type(step.forward[0][0]))
+    # The warm-up's three exchanges eagerly, then per step its three cuts
+    # and the world's live count.
+    assert first.count("collective") == 3 + 4 * len(steps)
+
+    def program(step):
+        out = []
+        for graph, _, ex in step.forward:
+            out += [f"replay {graph.n}"] + (["collective"] if ex else [])
+        return out
+
+    load = [f"replay {launch.graphs[('load',)][0][0].n}"]
+    forward = sum((program(step) for step in steps), [])
+    backward = [f"replay {step.backward[0].n}" for step in reversed(steps)]
+    r2, again = logged(call)
+    assert again == load + sum((program(step) + ["collective"]
+                                for step in steps), [])
+    _, grad = logged(lambda: torch.autograd.grad(r2.sum(),
+                                                 list(leaves.values())))
+    assert grad == backward
+    _, rerun = logged(lambda: torch.autograd.grad(r1.sum(),
+                                                  list(leaves.values())))
+    assert rerun == load + forward + backward
+
+    def exchange_in_backward(step):
+        dist.all_reduce(mesh, torch.zeros(1), "sum", None)
+
+    monkeypatch.setattr(scan, "_backward_body", exchange_in_backward)
+    start = len(log)
+    with pytest.raises(RuntimeError, match="single-graph capture"):
+        scan._capture(graphs._Step(0, launch, True))
+    bad = log[start:]
+    # The forward's three cuts ran; the backward's capture ended at once.
+    assert bad.count("collective") == 3
+    n = bad[-1].split()[-1]
+    assert bad[-3].startswith("replay")
+    assert bad[-2:] == [f"begin {n}", f"end {n}"]
+    assert scan._open is None and scan._segments is None
+    _build.reset_launches()

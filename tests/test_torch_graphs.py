@@ -20,7 +20,7 @@ from ptx_torch.config import RenderConfig
 from ptx_torch.integrator import graphs, wavefront
 from ptx_torch.integrator.wavefront import RayState
 from ptx_torch.kernels import shade_cuda
-from _torch_port import port_scene
+from _torch_port import port_scene, stub_cuda_graphs
 from test_opacity import stacked_planes_scene
 
 
@@ -162,25 +162,6 @@ def test_device_constant_outlives_any_number_of_others():
     assert torch.equal(again, torch.tensor([0.25, -0.0, 3.0]))
 
 
-class _FakeGraph:
-    """A CUDA graph's calls, logged (the CPU has none to capture)."""
-
-    made, log = [], []
-
-    def __init__(self):
-        self.n = len(_FakeGraph.made)
-        _FakeGraph.made.append(self)
-
-    def capture_begin(self, pool, capture_error_mode):
-        _FakeGraph.log.append(f"begin {self.n}")
-
-    def capture_end(self):
-        _FakeGraph.log.append(f"end {self.n}")
-
-    def replay(self):
-        _FakeGraph.log.append(f"replay {self.n}")
-
-
 def test_program_is_cut_at_its_exchanges(monkeypatch):
     """``GraphRunner``'s program with CUDA's calls stubbed: a unit with two
     exchanges is captured as three segments, each replayed at its cut and
@@ -190,17 +171,9 @@ def test_program_is_cut_at_its_exchanges(monkeypatch):
     while it was captured; a unit without an exchange is one graph; an
     exchange outside a capture runs at once; a failed unit leaves no cut
     open."""
-    from contextlib import nullcontext
-
     from ptx_torch.kernels import _build
 
-    log = _FakeGraph.log = []
-    _FakeGraph.made = []
-    monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
-    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: "pool")
-    monkeypatch.setattr(torch.cuda, "Stream", lambda: "side")
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda: "outer")
-    monkeypatch.setattr(torch.cuda, "stream", lambda s: nullcontext())
+    log = stub_cuda_graphs(monkeypatch)
     _build.reset_launches()
 
     def op(name):

@@ -31,7 +31,11 @@ test:
   the one-device step, the two refusals raised before any collective, and
   two layouts against ``ptx``'s shard_map training step (composed as
   ``__graft_entry__.dryrun_multichip`` composes it) within 1e-4 (loss) and
-  1e-3 relative L2 (gradients).
+  1e-3 relative L2 (gradients);
+* each tp training step again on the device scan (``diff.graphs.
+  DeviceScan``, its steps' forward cut at the exchanges; no capture on the
+  CPU): loss, gradients and parameters after the Adam step bit-equal to
+  the host scan's on every rank, route ``DeviceScan``.
 
 Every rank returns the whole image (the whole loss, gradients and
 parameters); each rank's is held equal to rank 0's, bit for bit.
@@ -334,9 +338,10 @@ JAX_LOSS_REL, JAX_GRAD_REL = 1e-4, 1e-3
 
 
 def _ranks(worlds, name):
-    """Every rank's file of a case (missing: its world's error)."""
+    """Every rank's file of a case, or of its run ``<case>.<route>``
+    (missing: its world's error)."""
     out, errors = worlds
-    world = W.CASES[name]["world"]
+    world = W.CASES[name.split(".")[0]]["world"]
     paths = [os.path.join(out, f"{name}.rank{r}.npz") for r in range(world)]
     assert all(os.path.exists(p) for p in paths), errors[world]
     return [dict(np.load(p)) for p in paths]
@@ -412,6 +417,29 @@ def test_distributed_adam_step_matches_single_device(worlds, name):
     _, grads, params = _single_step(name)
     for f, p in params.items():
         _assert_adam_step(got[f"param.{f}"], p, grads[f], W.LR)
+
+
+def _bits(x):
+    x = np.asarray(x)
+    return x.view(np.uint32) if x.dtype == np.float32 else x
+
+
+@pytest.mark.parametrize("name", W.DEVICE_SCAN)
+def test_tp_device_scan_matches_host_scan(worlds, name):
+    """A tp rank's training step on the device scan (each bounce step's
+    forward cut into segments at its exchanges, the world's live count read
+    one iteration late; on the CPU without capture) gives every rank the
+    host scan's loss, gradients and parameters after the Adam step, bit
+    for bit."""
+    host = _step_result(worlds, name)
+    scan = _step_result(worlds, f"{name}.scan")
+    assert list(scan["route"]) == ["DeviceScan"]
+    assert "DeviceScan" not in list(host["route"])
+    assert scan.keys() == host.keys()
+    for key in host:
+        if key != "route":
+            np.testing.assert_array_equal(_bits(scan[key]), _bits(host[key]),
+                                          err_msg=key)
 
 
 @pytest.mark.parametrize("name", REFUSALS)
