@@ -110,9 +110,8 @@ Phases (any failure raises, and the exit code is then non-zero):
    programs of graph segments cut at its exchanges), each tp rank's image
    against the same render on the host loop (color and alpha bits and PNG
    bytes equal, asserted), then each layout's sample loop timed in the
-   ranks (paths/s, the share of it in the collective helpers on a
-   synchronized clock, their calls and bytes per sample: two ranks
-   time-sharing one H100, not a scaling figure) and, for tp, the loop's
+   ranks (paths/s, the collective helpers' calls and bytes per sample: two
+   ranks time-sharing one H100, not a scaling figure) and, for tp, the loop's
    graphs, segments per chunk step and capture seconds, paths/s through
    the device pass and the host loop in turns, and the device pass's
    idle split (``replay_split``: busy in replays, idle at launch edges,
@@ -142,7 +141,7 @@ Phases (any failure raises, and the exit code is then non-zero):
    3 turns each, the device scan's idle split over one value and gradient
    (``replay_split``), its graphs, capture seconds, pool bytes and segments
    per step, peak device memory of each scan, and the collective helpers'
-   share of a step, its calls and its bytes.
+   calls and bytes in a step.
 13. the device loop (``ptx_torch.integrator.graphs.DeviceLoop``: CUDA
    graphs of the chunk step and the sort, the live count read one
    iteration late), the fused integrator's loop in phases 5-12 too:
@@ -156,8 +155,7 @@ Phases (any failure raises, and the exit code is then non-zero):
    bytes equal; (c) per launch, the device loop's kernel launches (replays
    x their graphs' tallies) equal the host loop's plus one chunk step's
    for each all-dead chunk of the lag; (d) paths/s of the two loops in 3
-   turns each (smoke cell and bvh), the device loop's busy share by CUDA
-   events around each replay, and a profiled sample of each loop; (e)
+   turns each (smoke cell and bvh) and a profiled sample of each loop; (e)
    each loop's graphs, capture seconds, pool and buffer bytes; (f) one
    profiled sample of the host loop, its device time split by phase
    (plan, closest, any, shadow-ray setup, shade, sort, epilogue, material
@@ -177,9 +175,9 @@ Phases (any failure raises, and the exit code is then non-zero):
    launch's value and gradient through each: the device scan's kernel
    launches (replays x their graphs' tallies) equal the host scan's plus
    one step's per all-dead step; (d) grad-paths/s of the two scans in 3
-   turns each at 128x128 and at 256x256, 4 spp, for both sets; (e) the
-   device scan's busy share by CUDA events around its replays, each scan's
-   peak device memory, a profiled value and gradient of each at 128x128,
+   turns each at 128x128 and at 256x256, 4 spp, for both sets; (e) each
+   scan's peak device memory, a profiled value and gradient of each at
+   128x128,
    and the device scan's graphs, capture seconds and pool bytes; (f)
    ``render_grad`` at 32x32 (DIFF_FIELDS; ``tri_a``, whose tiles are
    packed inside each step) and ``make_batch_loss_fn`` over two sample
@@ -1871,7 +1869,7 @@ def loop_programs(loop) -> dict:
                 segments=sorted(sizes))
 
 
-def run_layout(fs, static, cfg, plan, comm, dev, timed=(True,), plain=None,
+def run_layout(fs, static, cfg, plan, comm, dev, timed=1, plain=None,
                host=False, turns=(), split=False):
     """One layout on this rank, as phase 12's ranks and
     ``multirank_check.py`` run it: ``render_distributed`` with the launch
@@ -1880,14 +1878,13 @@ def run_layout(fs, static, cfg, plan, comm, dev, timed=(True,), plain=None,
     with ``host``, the same render on the host loop (:func:`host_loop`:
     the same launches); then, on the scene prepared again, the sample loop
     alone: with ``turns`` (routes, "device" or "host"), one warm pass of
-    each route, then a pass per entry; then once per entry of ``timed``
-    through the rank's own sample function, the collective helpers' clock
-    on where the entry is True; with ``split`` (a card), one pass under
+    each route, then a pass per entry; then ``timed`` passes through the
+    rank's own sample function; with ``split`` (a card), one pass under
     :func:`replay_split`.  Each pass starts from a barrier.  Returns a
     dict: the result (and ``host_result``), the launches, the plain calls,
     each timed pass's wall seconds (``walls``; ``turn_walls``: (route,
-    seconds) in turns), the samples per launch, the helpers' seconds,
-    calls and bytes per sample in the last timed pass, the sample
+    seconds) in turns), the samples per launch, the helpers' calls and
+    bytes per sample in the last timed pass, the sample
     function's class (``route``), its loop's graphs (:func:`loop_programs`)
     and the split."""
     import torch
@@ -1932,11 +1929,11 @@ def run_layout(fs, static, cfg, plan, comm, dev, timed=(True,), plain=None,
     rep = multihost.replicator(mesh, comm)
     pixels = pdist.pixel_range(mesh, comm, cfg.width * cfg.height)
 
-    def run_pass(fn, clock=False, barrier=True):
+    def run_pass(fn, barrier=True):
         if barrier:
             rep.barrier()
             sync()
-        pdist.STATS.reset(timed=clock)
+        pdist.STATS.reset()
         t0 = time.perf_counter()
         R.progressive_render(fs_l, st_l, cfg, fn if k == 1 else None,
                              fn if k > 1 else None, k, dev, replicate=rep,
@@ -1948,14 +1945,14 @@ def run_layout(fs, static, cfg, plan, comm, dev, timed=(True,), plain=None,
         for route in fns:
             run_pass(fns[route])
         out["turn_walls"] = [(route, run_pass(fns[route])) for route in turns]
-    for clock in timed:
-        out["walls"].append(run_pass(fns["device"], clock))
+    for _ in range(timed):
+        out["walls"].append(run_pass(fns["device"]))
     st = pdist.STATS
-    out.update(k=k, collective_s=st.seconds, collective_calls=st.calls,
+    out.update(k=k, collective_calls=st.calls,
                bytes_per_sample=st.bytes / cfg.samples,
                calls_per_sample=st.calls / cfg.samples,
                route=type(fns["device"]).__name__)
-    pdist.STATS.reset(timed=False)
+    pdist.STATS.reset()
     if isinstance(fns["device"], DevicePass):
         out["graphs"] = loop_programs(fns["device"].loop)
     if split and dev.type == "cuda":
@@ -2042,8 +2039,8 @@ def run_train_layout(fs, static, cfg, plan, comm, dev, target, single_image,
     rate); on a card the peak device memory of one call of each and the
     device scan's :func:`replay_split` over one call; last, after one
     warm step on a copy of the parameters, one
-    ``make_distributed_train_step`` step from a barrier with the
-    collective helpers' clock on.  Returns a dict of numpy arrays and
+    ``make_distributed_train_step`` step from a barrier, its collective
+    helpers' calls and bytes counted.  Returns a dict of numpy arrays and
     numbers."""
     import torch
     import torch.distributed as tdist
@@ -2125,22 +2122,21 @@ def run_train_layout(fs, static, cfg, plan, comm, dev, target, single_image,
                                                  lr=GRAD_LR)
     step(*step.init(params), fs)  # its scan's warm-up and captures
     leaves, opt = step.init(params)
-    pdist.STATS.reset(timed=True)
+    pdist.STATS.reset()
     _, out["step_s"] = timed_call(lambda: step(leaves, opt, fs))
     st = pdist.STATS
-    out.update(collective_s=st.seconds, collective_calls=st.calls,
-               bytes_per_step=st.bytes,
+    out.update(collective_calls=st.calls, bytes_per_step=st.bytes,
                **{f"param.{f}": p.detach().cpu().numpy()
                   for f, p in leaves.items()})
-    pdist.STATS.reset(timed=False)
+    pdist.STATS.reset()
     return out
 
 
 def rank_worker(port: int, rank: int, out: str, spec: dict) -> int:
     """One of two gloo ranks of phase 12 (``chip_smoke.py --rank-worker``):
     each layout of DIST_LAYOUTS through :func:`run_layout` (its launches
-    and plain calls counted, then its sample loop timed with the collective
-    helpers' clock on); each layout's training step through
+    and plain calls counted, then its sample loop timed, its collective
+    calls and bytes counted); each layout's training step through
     :func:`run_train_layout` (against the one-device image in
     ``grad_single.npy``); then the textured quads with the texel pack
     replicated and sharded.  Writes ``rank<r>.json``, each layout's image
@@ -2177,7 +2173,7 @@ def rank_worker(port: int, rank: int, out: str, spec: dict) -> int:
         run = run_layout(fs, static, cfg, pmesh.Plan(dp, tp, tp > 1), comm,
                          dev, plain=plain, host=tp > 1,
                          turns=DIST_TURNS if tp > 1 else (), split=tp > 1)
-        save(name, run, wall_s=run["walls"][0], collective_s=run["collective_s"],
+        save(name, run, wall_s=run["walls"][0],
              collective_calls=run["collective_calls"],
              calls_per_sample=run["calls_per_sample"],
              bytes_per_sample=run["bytes_per_sample"], k=run["k"],
@@ -2202,7 +2198,7 @@ def rank_worker(port: int, rank: int, out: str, spec: dict) -> int:
         save(f"tex_{'sharded' if shard else 'replicated'}",
              run_layout(tex_fs, tex_static, tex_cfg,
                         pmesh.Plan(1, 2, True, shard), "reduce", dev,
-                        timed=(), plain=plain, host=shard))
+                        timed=0, plain=plain, host=shard))
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
         json.dump(report, f)
     multihost.shutdown()
@@ -2469,8 +2465,6 @@ def log_train_rank(tag, t, paths, smi, where):
         log(f"  {tag}: device scan, one value and gradient: "
             f"{split_line(t['split'])} ({where}; {smi})")
     log(f"  {tag}: train step {t['step_s']:.3f} s, collectives "
-        f"{t['collective_s']:.3f} s = "
-        f"{100 * t['collective_s'] / t['step_s']:.1f} % of it in "
         f"{t['collective_calls']} calls, {t['bytes_per_step']:,} bytes "
         f"({where}; {smi})")
 
@@ -2665,8 +2659,6 @@ def check_distributed(dev, single, cfg, smi, scene=SLICE_SCENE,
                 t = rep[name]
                 log(f"  rank {r} {name}: sample loop {t['wall_s']:.3f} s = "
                     f"{paths / t['wall_s']:,.0f} paths/s, collectives "
-                    f"{t['collective_s']:.3f} s = "
-                    f"{100 * t['collective_s'] / t['wall_s']:.1f} % of it in "
                     f"{t['collective_calls']} calls "
                     f"({t['calls_per_sample']:.1f} per sample), "
                     f"{t['bytes_per_sample']:,.0f} bytes per sample, "
@@ -2989,9 +2981,8 @@ def hold_launch_counts(loop, host, fs, cfg, dev):
 
 
 def loop_turns(tag, loop, host, fs, static, cfg, dev, smi):
-    """(d) the sample loop on each loop in turns (paths/s), then the device
-    loop's busy share by CUDA events around each replay (whatever a
-    profiler records of a graph) and a profiled sample of each loop."""
+    """(d) the sample loop on each loop in turns (paths/s), then a profiled
+    sample of each loop."""
     paths = cfg.width * cfg.height * cfg.samples
     rates = {"host": [], "device": []}
     for name in LOOP_TURNS:
@@ -3001,16 +2992,6 @@ def loop_turns(tag, loop, host, fs, static, cfg, dev, smi):
     for name, r in rates.items():
         log(f"(d) {tag}, {name} loop: " + ", ".join(f"{x:,.0f}" for x in r)
             + f" paths/s in turns ({smi})")
-    loop.replay_events = []
-    try:
-        _, wall = loop_render(loop, fs, static, cfg, dev)
-        busy = sum(a.elapsed_time(b) for a, b in loop.replay_events)
-        replays = len(loop.replay_events)
-    finally:
-        loop.replay_events = None
-    log(f"(d) {tag}, device loop: busy in its {replays} replays {busy:.1f} of "
-        f"{wall * 1e3:.1f} ms for {cfg.samples} samples "
-        f"({100 * busy / (wall * 1e3):.0f} %, CUDA events) ({smi})")
     for name, integrate in (("host", host), ("device", loop)):
         n_dev, busy, wall_ms, _ = profile_sample(
             sample_fn_of(integrate, cfg, dev), fs)
@@ -3102,7 +3083,7 @@ def check_device_loop(fs_np, static_np, cfg, dev, smi):
     sync in an eager chunk step; (b) the device loop against the host loop,
     bit for bit per launch and in PNG bytes, on the smoke cell, a
     translucent scene, the small-sweep scene and the bvh path; (c) its
-    launch counts; (d) paths/s in turns and the busy share; (e) graphs,
+    launch counts; (d) paths/s in turns and a profiled sample; (e) graphs,
     capture seconds, pool bytes; (f) the host loop's device time by
     phase."""
     import torch
@@ -3349,21 +3330,12 @@ def scan_turns(tag, vgs, params, fs, cfg, dev, smi, turns):
 
 
 def scan_costs(tag, vgs, scan, params, fs, dev, smi, profiled=True):
-    """(e) the device scan's busy share by CUDA events around its replays,
-    each scan's peak device memory over one call and, when ``profiled``, a
-    profiled value and gradient of each (device kernels, busy share), and
-    the device scan's graphs, capture seconds and pool bytes."""
+    """(e) each scan's peak device memory over one call and, when
+    ``profiled``, a profiled value and gradient of each (device kernels,
+    busy share), and the device scan's graphs, capture seconds and pool
+    bytes."""
     import torch
 
-    scan.replay_events = []
-    try:
-        _, wall = timed(lambda: vgs["device"](params, fs), dev)
-        busy = sum(a.elapsed_time(b) for a, b in scan.replay_events)
-        replays = len(scan.replay_events)
-    finally:
-        scan.replay_events = None
-    log(f"(e) {tag}, device scan: busy in its {replays} replays {busy:.1f} of "
-        f"{wall:.1f} ms ({100 * busy / wall:.0f} %, CUDA events) ({smi})")
     for name in ("host", "device"):
         held = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -3460,7 +3432,7 @@ def check_device_scan(dev, smi, scene=None, shape=None, frame=SCAN_FRAME,
     and ``tri_a`` (moved vertices, then the scene's: the tiles repacked per
     call read in place), and on the translucent cell; (c) launches per
     launch; (d) grad-paths/s in turns at ``shape`` and at ``frame``; (e)
-    busy share, peak memory, graphs, capture seconds, pool bytes; (f)
+    peak memory, profiled calls, graphs, capture seconds, pool bytes; (f)
     ``render_grad`` at ``small`` and ``make_batch_loss_fn`` over two
     sample groups (:func:`scan_entry_points`)."""
     from ptx_torch import bench

@@ -25,9 +25,9 @@ the differing pixels counted; every rank's sample pass a device pass
 of graph segments cut at its exchanges), and a tp rank's image bit-equal
 to the same render on the host loop; then each layout's sample loop from
 a barrier: the device pass and the host loop in turns (paths/s per rank,
-after one warm pass of each), then once plain (paths/s), once with the
-collective helpers' clock on (their share of the wall, calls and bytes
-per sample), and once under ``chip_smoke.replay_split`` (the busy share in
+after one warm pass of each), then once plain (paths/s; the collective
+helpers' calls and bytes per sample), and once under
+``chip_smoke.replay_split`` (the busy share in
 graph replays, the idle at launch edges, at segment boundaries and
 between iterations), with the loop's graphs and segments per chunk
 step.  Rank 0 prints one
@@ -48,9 +48,8 @@ gradients (``run_train_layout`` raises otherwise), then per rank
 grad-paths/s through the device scan and the host scan in 3 turns each
 (the fastest of the device scan's against the single card), the device
 scan's idle split over one value and gradient, its graphs, capture
-seconds, pool bytes and segments per step, the collective helpers' share
-of a step's wall, its calls and its bytes, and peak device memory of each
-scan.
+seconds, pool bytes and segments per step, the collective helpers' calls
+and bytes in a step, and peak device memory of each scan.
 """
 
 from __future__ import annotations
@@ -131,8 +130,6 @@ def backward(scene, shape, dev, world, rank, cards, log):
                    host_speedup=one / max(host),
                    turns=[[(route, paths / w) for route, w in r["turn_walls"]]
                           for r in every],
-                   collective_share=[r["collective_s"] / r["step_s"]
-                                     for r in every],
                    collective_calls=[r["collective_calls"] for r in every],
                    bytes_per_step=[r["bytes_per_step"] for r in every],
                    peak_bytes=[r["peak_bytes"] for r in every],
@@ -148,9 +145,9 @@ def backward(scene, shape, dev, world, rank, cards, log):
             f", {row['host_speedup']:.2f}x); loss {loss_err:.3g}, "
             f"gradients relative L2 {max(errs.values()):.3g} ({n_flips} "
             "flipped pixels left out), ranks bit-equal; collectives "
-            f"{', '.join(f'{100 * c:.1f}' for c in row['collective_share'])} "
-            f"% of each rank's step, {row['bytes_per_step'][0]:,} bytes per "
-            f"step per rank ({cards[0]})")
+            f"{', '.join(str(c) for c in row['collective_calls'])} calls, "
+            f"{row['bytes_per_step'][0]:,} bytes per step per rank "
+            f"({cards[0]})")
         for r, t in enumerate(every):
             smoke.log_train_rank(f"rank {r} {name}", t, paths, cards[r],
                                  "one rank per card, NCCL" if dev.type ==
@@ -257,14 +254,13 @@ def main(argv=None) -> int:
     for dp, tp, comm in layouts(world):
         plan = pmesh.Plan(dp, tp, tp > 1)
         run = smoke.run_layout(fs, static, cfg, plan, comm, dev,
-                               timed=(False, True), plain=plain, host=tp > 1,
+                               timed=1, plain=plain, host=tp > 1,
                                turns=smoke.DIST_TURNS, split=cuda)
         res = run["result"]
         host = run.get("host_result")
         mine = dict(rank=rank,
                     launches={k: run["launches"][k] for k in smoke.DIST_KERNELS},
                     plain_calls=run["plain_calls"], wall_s=run["walls"][0],
-                    timed_wall_s=run["walls"][1], collective_s=run["collective_s"],
                     collective_calls=run["collective_calls"],
                     calls_per_sample=run["calls_per_sample"],
                     bytes_per_sample=run["bytes_per_sample"], k=run["k"],
@@ -315,7 +311,6 @@ def main(argv=None) -> int:
             pixels_over_atol=int((d > smoke.COLOR_ATOL).sum()),
             paths_per_s=paths / max(r["wall_s"] for r in every),
             speedup=single_s / max(r["wall_s"] for r in every),
-            collective_share=[r["collective_s"] / r["timed_wall_s"] for r in every],
             bytes_per_sample=[r["bytes_per_sample"] for r in every],
             samples_per_launch=every[0]["k"],
             launches=[r["launches"] for r in every],
@@ -328,9 +323,7 @@ def main(argv=None) -> int:
         log(f"{name}: {row['paths_per_s']:,.0f} paths/s "
             f"({row['speedup']:.2f}x one card), bit-equal {exact}, "
             f"{row['pixels_differ']} pixels differ "
-            f"({row['pixels_over_atol']} by > {smoke.COLOR_ATOL}); collectives "
-            f"{', '.join(f'{100 * c:.1f}' for c in row['collective_share'])} % "
-            f"of each rank's timed loop, "
+            f"({row['pixels_over_atol']} by > {smoke.COLOR_ATOL}); "
             f"{row['bytes_per_sample'][0]:,.0f} bytes per sample per rank "
             f"({cards[0]})")
         log(f"  {name}: route {row['route']}"

@@ -16,8 +16,12 @@ Usage:
 ``render --checkpoint`` resumes from a compatible checkpoint and writes
 one (and a preview PNG beside ``--out``) every ``--checkpoint-every``
 samples; ``--visualize`` writes a debug view (``ptx_torch.debug``) in place
-of the beauty render; ``--metrics`` prints per-phase times; ``--profile DIR``
-writes a ``torch.profiler`` Chrome trace into DIR.  ``render --distributed``
+of the beauty render; ``--metrics`` prints per-phase times (each phase
+ends in a device synchronize); ``--profile DIR`` writes a ``torch.profiler``
+Chrome trace into DIR, which holds the program's spans (``ptx.sample``,
+``ptx.launch``, ``ptx.replay``, ``ptx.exchange``: ``ptx_torch.utils.span``)
+on the kernels' clock and, without ``--metrics``, no synchronize per
+sample.  ``render --distributed``
 joins the process group torchrun describes (one rank per card over NCCL)
 and renders over the rank mesh that ``ptx_torch.parallel.mesh.plan``
 picks (``--tp`` forces the scene axis, ``--comm`` its exchange); rank 0
@@ -82,7 +86,9 @@ def _add_render_args(p: argparse.ArgumentParser, scene_required: bool = True):
     p.add_argument("--comm", default="reduce", choices=["reduce", "ring"],
                    help="scene-axis exchange: min reduce or ring schedule")
     p.add_argument("--profile", metavar="DIR",
-                   help="write a torch.profiler Chrome trace to DIR")
+                   help="write a torch.profiler Chrome trace to DIR; it "
+                        "holds the ptx.sample, ptx.launch, ptx.replay and "
+                        "ptx.exchange spans")
     p.add_argument("--metrics", action="store_true",
                    help="print per-phase timing/throughput at the end")
 
@@ -165,7 +171,7 @@ def cmd_render(args) -> int:
     def progress(done, total):
         print(f"\rsample {done}/{total}", end="", file=sys.stderr)
 
-    metrics = Metrics() if (args.metrics or args.profile) else None
+    metrics = Metrics() if args.metrics else None
     # The preview of each checkpoint goes beside the output:
     # out.png -> out.preview.png.
     preview = (os.path.splitext(args.out)[0] + ".preview.png"

@@ -104,6 +104,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from ptx_torch import utils
 from ptx_torch.config import RenderConfig
 from ptx_torch.integrator.graphs import GraphRunner, read_count
 from ptx_torch.integrator.wavefront import (RayState, empty_state,
@@ -160,14 +161,16 @@ def _versions(call) -> list:
 
 class _Scan(torch.autograd.Function):
     """The scan as one autograd node: the forward runs the steps' forward
-    graphs, the backward their backward graphs in reverse."""
+    graphs, the backward their backward graphs in reverse; each a
+    ``ptx.launch`` span (``utils.span``)."""
 
     @staticmethod
     def forward(ctx, scan, pixel_ids, sample_ids, copies, *grads):
         ctx.scan = scan
         ctx.call = (pixel_ids, sample_ids, copies, grads)
         ctx.versions = _versions(ctx.call)
-        ctx.launch, ctx.steps = scan._forward(*ctx.call)
+        with utils.span("ptx.launch"):
+            ctx.launch, ctx.steps = scan._forward(*ctx.call)
         ctx.gen = scan._gen
         out = ctx.steps[-1].out
         alpha = out.alpha.detach().clone()
@@ -176,7 +179,9 @@ class _Scan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_radiance, _g_alpha):
-        return (None, None, None, None, *ctx.scan._backward(ctx, g_radiance))
+        with utils.span("ptx.launch"):
+            grads = ctx.scan._backward(ctx, g_radiance)
+        return (None, None, None, None, *grads)
 
 
 class DeviceScan(GraphRunner):

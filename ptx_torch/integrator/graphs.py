@@ -67,11 +67,12 @@ from __future__ import annotations
 
 import gc
 import time
-from typing import List, Optional, Tuple
+from typing import Optional
 
 import numpy as np
 import torch
 
+from ptx_torch import utils
 from ptx_torch.config import RenderConfig
 from ptx_torch.integrator import wavefront
 from ptx_torch.integrator.wavefront import (RayState, empty_state,
@@ -129,11 +130,10 @@ class GraphRunner:
     exchanges; the exchanges run between the replays, on the current
     stream.  A unit without one is a program of one graph.
 
-    Read by ``chip_smoke.py``: ``captures`` and ``capture_seconds`` (graphs
+    Each replay is a ``ptx.replay`` span (``utils.span``).  Read by
+    ``chip_smoke.py``: ``captures`` and ``capture_seconds`` (graphs
     captured so far, host seconds spent capturing them, the replays and
-    exchanges run meanwhile included), :meth:`pool_bytes`, and
-    ``replay_events``: set it to a list and each replay appends its
-    (start, end) CUDA events."""
+    exchanges run meanwhile included) and :meth:`pool_bytes`."""
 
     def __init__(self):
         self._pool = None
@@ -143,7 +143,6 @@ class GraphRunner:
         self._segments = None  # the segments of the program being captured
         self.captures = 0
         self.capture_seconds = 0.0
-        self.replay_events: Optional[List[Tuple]] = None
 
     def _record(self, fn, cuts: bool):
         """``(segments, fn())``: ``fn``'s work captured into CUDA graphs in
@@ -255,15 +254,8 @@ class GraphRunner:
 
     def _replay(self, graph, tally):
         """Replay ``graph`` and count its capture's launches."""
-        if self.replay_events is None:
+        with utils.span("ptx.replay"):
             graph.replay()
-        else:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            graph.replay()
-            end.record()
-            self.replay_events.append((start, end))
         _build.add_launches(tally)
 
     def pool_bytes(self) -> Optional[int]:
@@ -334,7 +326,20 @@ class DeviceLoop(GraphRunner):
     ``live_sync`` (a tp rank's, ``parallel.dist``) maps this rank's live
     count, a tensor, to the world's largest on the device.
     Read by ``chip_smoke.py`` as a :class:`GraphRunner`, and its
-    :meth:`schedule` (the last call's counts against the host loop's)."""
+    :meth:`schedule` (the last call's counts against the host loop's).
+
+    Running totals over every launch, read with :meth:`counters` (and
+    printed by ``render --metrics``): ``iterations`` and ``sorts`` run,
+    ``lanes_stepped`` (chunk steps run x the chunk's lanes) and
+    ``lanes_live`` (the sum of ``c_i``, the live count entering each
+    iteration run), so that ``lanes_live / lanes_stepped`` is the share of
+    the lanes stepped that were alive.  They take only the counts the loop
+    reads anyway, and wait for none.  A launch that runs all ``max_iters``
+    does not read the count entering its last iteration: the next launch
+    takes it after its own first read, which follows it in stream order,
+    and :meth:`counters` with a wait.  Where that launch has no read before
+    it writes the slot again (loops of at most three iterations), the
+    iteration is left out of both lane totals."""
 
     def __init__(self, static: SceneStatic, cfg: RenderConfig, step,
                  live_sync=None):
@@ -347,11 +352,16 @@ class DeviceLoop(GraphRunner):
         self._sun = None
         self._launches = {}
         self._last = None
+        self.iterations = self.sorts = 0
+        self.lanes_stepped = self.lanes_live = 0
+        # (launch, i, lanes): the last iteration of the previous launch,
+        # whose entering count c_i is unread, and the lanes it stepped.
+        self._owed = None
 
     def __call__(self, fs: FlatScene, pixel_ids, sample_ids):
         r = pixel_ids.shape[0]
         self._bind(fs)
-        with torch.no_grad():
+        with torch.no_grad(), utils.span("ptx.launch"):
             launch = self._launch(r, pixel_ids.device)
             launch.state.pixel_ids.copy_(pixel_ids)
             launch.state.sample_ids.copy_(sample_ids)
@@ -428,6 +438,8 @@ class DeviceLoop(GraphRunner):
             if it > 0:
                 if it > 1:
                     counts.append(read_count(launch, it - 1))
+                    if it == 2:
+                        self._settle(launch)
                 if counts[it - 1] == 0:
                     break
                 in_c0 = in_c0 or counts[it - 1] <= skip
@@ -448,6 +460,37 @@ class DeviceLoop(GraphRunner):
                 launch.events[it + 1].record()
             steps.append(n_live)
         self._last = (launch, counts, steps, sorts)
+        n = len(counts)  # the iterations whose entering count was read
+        self.iterations += len(steps)
+        self.sorts += sorts
+        self.lanes_stepped += chunk * sum(steps[:n])
+        self.lanes_live += sum(counts)
+        # An owed count this launch did not take is dropped (class docstring).
+        self._owed = (launch, n, chunk * steps[n]) if n < len(steps) else None
+
+    def _settle(self, current: Optional[_Launch] = None):
+        """Add the owed iteration to the lane totals: read by a wait with
+        ``current`` None, else right after ``current``'s first read, with
+        no wait, unless ``current`` has written its slot again."""
+        if self._owed is None:
+            return
+        launch, i, lanes = self._owed
+        self._owed = None
+        if current is None:
+            c = read_count(launch, i)
+        elif launch is not current or i > 2:
+            c = int(launch.host[i])
+        else:
+            return
+        self.lanes_live += c
+        self.lanes_stepped += lanes
+
+    def counters(self) -> dict:
+        """The running totals (class docstring), the owed count read."""
+        self._settle()
+        return dict(iterations=self.iterations, sorts=self.sorts,
+                    lanes_stepped=self.lanes_stepped,
+                    lanes_live=self.lanes_live)
 
     def _sort(self, launch: _Launch):
         state, slot = wavefront.sort_wavefront(launch.state, launch.slot,
@@ -652,16 +695,17 @@ class DevicePass:
         with torch.no_grad():
             launch = loop._launch(r, self.device)
             for j, start in enumerate(self._starts()):
-                self._write_scalars(start, s, count)
-                loop._start(fs, launch, self._graphs, ("prologue",),
-                            lambda: self._ids(launch))
-                loop._loop(fs, launch, r)
-                part = tuple(c[j * self.chunk:(j + 1) * self.chunk]
-                             for c in self.carry)
-                loop._run(self._graphs, ("epilogue", j),
-                          lambda: self._fold(launch, part), launch.cuda,
-                          warm=lambda: self._fold(
-                              launch, tuple(c.clone() for c in part)))
+                with utils.span("ptx.launch"):
+                    self._write_scalars(start, s, count)
+                    loop._start(fs, launch, self._graphs, ("prologue",),
+                                lambda: self._ids(launch))
+                    loop._loop(fs, launch, r)
+                    part = tuple(c[j * self.chunk:(j + 1) * self.chunk]
+                                 for c in self.carry)
+                    loop._run(self._graphs, ("epilogue", j),
+                              lambda: self._fold(launch, part), launch.cuda,
+                              warm=lambda: self._fold(
+                                  launch, tuple(c.clone() for c in part)))
 
     def _write_scalars(self, first: int, s: int, count: int):
         host = torch.empty(self._scalars.shape, dtype=torch.int32,

@@ -47,21 +47,21 @@ made (inside a capture: in the graph pool, so a replay finds it at the
 same address).  Under gloo with CUDA tensors (ranks sharing one card) they
 copy each tensor to the host and back: gloo's CUDA support covers only
 some collectives (not all-gather, not point-to-point), so every call takes
-the one staged path.  They also keep :data:`STATS` (calls, bytes handed
-over, and, when asked, the wall time on a host clock synchronized with the
-device) at every run, replays included.
+the one staged path.  They also keep :data:`STATS` (calls and bytes handed
+over) at every run, replays included, and mark each run as a
+``ptx.exchange`` span (``utils.span``), whose device work a profiled run
+times without a synchronize.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from ptx_torch import geometry
+from ptx_torch import geometry, utils
 from ptx_torch.config import RenderConfig
 from ptx_torch.kernels.intersect import Hit
 from ptx_torch.parallel import mesh as pmesh
@@ -75,53 +75,38 @@ from ptx_torch.scene.flatten import FlatScene, SceneStatic
 
 @dataclasses.dataclass
 class CommStats:
-    """What this rank handed to collectives since :meth:`reset`: calls,
+    """What this rank handed to collectives since :meth:`reset`: calls and
     payload bytes (the tensor of an all-reduce or a send, this rank's slice
-    of an all-gather) and, with ``timed``, seconds of wall between a device
-    synchronize before the call and one after it."""
+    of an all-gather)."""
 
-    timed: bool = False
     calls: int = 0
     bytes: int = 0
-    seconds: float = 0.0
 
-    def reset(self, timed: Optional[bool] = None):
-        self.calls, self.bytes, self.seconds = 0, 0, 0.0
-        if timed is not None:
-            self.timed = timed
+    def reset(self):
+        self.calls, self.bytes = 0, 0
 
 
 STATS = CommStats()
-
-
-def _sync(x):
-    if x.is_cuda:
-        torch.cuda.synchronize(x.device)
 
 
 def _collective(mesh, src, dst, run):
     """``run(src, dst)``, a collective that reads ``src`` and writes
     ``dst`` in place, as an exchange point (``graphs.exchange``: eagerly,
     or between two graphs of a device program).  Under gloo with CUDA
-    tensors it runs on host copies and ``dst`` is copied back.  Keeps
-    STATS at every run (``src``'s bytes)."""
+    tensors it runs on host copies and ``dst`` is copied back.  Each run
+    is a ``ptx.exchange`` span and adds to STATS (``src``'s bytes)."""
     from ptx_torch.integrator.graphs import exchange
 
     def op(src, dst):
-        if STATS.timed:
-            _sync(src)
-            t0 = time.perf_counter()
-        if mesh.staging:
-            hs = src.cpu()
-            hd = hs if dst is src else torch.empty(dst.shape,
-                                                   dtype=dst.dtype)
-            run(hs, hd)
-            dst.copy_(hd)
-        else:
-            run(src, dst)
-        if STATS.timed:
-            _sync(dst)
-            STATS.seconds += time.perf_counter() - t0
+        with utils.span("ptx.exchange"):
+            if mesh.staging:
+                hs = src.cpu()
+                hd = hs if dst is src else torch.empty(dst.shape,
+                                                       dtype=dst.dtype)
+                run(hs, hd)
+                dst.copy_(hd)
+            else:
+                run(src, dst)
         STATS.calls += 1
         STATS.bytes += src.numel() * src.element_size()
 

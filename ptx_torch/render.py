@@ -28,6 +28,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from ptx_torch import utils
 from ptx_torch.config import RenderConfig
 from ptx_torch.scene.flatten import FlatScene, SceneStatic
 from ptx_torch.integrator import accumulate, graphs
@@ -365,8 +366,12 @@ def progressive_render(fs: FlatScene, static: SceneStatic, cfg: RenderConfig,
     :func:`_update_mean` / :func:`_update_mean_batch` / :func:`_claim_step`
     / :func:`_update_claim_batch` and copy the result into the carry.  The
     metrics' "trace" phase times the launches (on a device pass, the fold
-    too), "accumulate" the fold of the other routes; on a device pass
-    "accumulate" holds no work, since its fold runs inside "trace".
+    too), "accumulate" the fold of the other routes (a device pass has no
+    "accumulate" phase: its fold runs inside "trace").  Each turn of the
+    loop, the trace and the fold, is a ``ptx.sample`` span
+    (``utils.span``); checkpoints and ``progress`` lie outside it.  On a
+    device pass the metrics also count the device loop's iterations,
+    sorts and lanes (``DeviceLoop.counters``) over the render.
 
     Multi-rank runs (``ptx_torch.parallel.dist.render_distributed``) carry
     only this rank's ``pixels`` = ``(start, stop)``, which its trace
@@ -435,31 +440,34 @@ def progressive_render(fs: FlatScene, static: SceneStatic, cfg: RenderConfig,
             return contextlib.nullcontext()
         return metrics.phase(name, items=items, block=block)
 
+    # The device loop's counters over this render, for the metrics' report.
+    counted = (dpass.loop.counters()
+               if metrics is not None and dpass is not None else None)
     s = start
     last_ckpt = start // checkpoint_every
     while s < cfg.samples:
         count = min(k, cfg.samples - s)
-        if dpass is not None:
-            # The fold runs in each launch's epilogue, inside "trace".
-            with phase("trace", items=p * count, block=carry):
-                dpass.accumulate(fs, s, count)
-            with phase("accumulate"):
-                pass
-        else:
-            out = []  # block= is read when the phase ends
-            with phase("trace", items=p * count, block=out):
-                out[:] = (batch_fn(fs, s) if k > 1 else sample_fn(fs, s))
-            with phase("accumulate"):
-                if k == 1:
-                    fold = (_claim_step if cfg.transparent_background
-                            else _update_mean)
-                    new = fold(carry, *out, s)
-                else:
-                    fold = (_update_claim_batch if cfg.transparent_background
-                            else _update_mean_batch)
-                    new = fold(carry, *out, s, count)
-                for c, x in zip(carry, new):
-                    c.copy_(x)
+        with utils.span("ptx.sample"):
+            if dpass is not None:
+                # The fold runs in each launch's epilogue, inside "trace".
+                with phase("trace", items=p * count, block=carry):
+                    dpass.accumulate(fs, s, count)
+            else:
+                out = []  # block= is read when the phase ends
+                with phase("trace", items=p * count, block=out):
+                    out[:] = (batch_fn(fs, s) if k > 1 else sample_fn(fs, s))
+                with phase("accumulate"):
+                    if k == 1:
+                        fold = (_claim_step if cfg.transparent_background
+                                else _update_mean)
+                        new = fold(carry, *out, s)
+                    else:
+                        fold = (_update_claim_batch
+                                if cfg.transparent_background
+                                else _update_mean_batch)
+                        new = fold(carry, *out, s, count)
+                    for c, x in zip(carry, new):
+                        c.copy_(x)
         s += count
         if progress is not None:
             progress(s, cfg.samples)
@@ -472,6 +480,10 @@ def progressive_render(fs: FlatScene, static: SceneStatic, cfg: RenderConfig,
     if checkpoint_path is not None:
         with phase("checkpoint"):
             write_checkpoint(cfg.samples)
+
+    if counted is not None:
+        for name, n in dpass.loop.counters().items():
+            metrics.count(name, n - counted[name])
 
     color, alpha = carry[0], carry[1]
     if replicate is not None:

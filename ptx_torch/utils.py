@@ -1,5 +1,5 @@
-"""Observability: phase timers, throughput counters, profiler traces (port
-of ``ptx/utils.py``).
+"""Observability: phase timers, throughput counters, spans, profiler traces
+(port of ``ptx/utils.py``).
 
 :class:`Metrics` times named phases on the host clock, with an item count
 for a rate; a phase given ``block=`` tensors on a CUDA device waits for the
@@ -8,6 +8,18 @@ package waits with ``jax.block_until_ready``.  :func:`profiler_trace` runs
 ``torch.profiler`` over a scope and writes a Chrome trace (JSON, open it in
 ``chrome://tracing`` or Perfetto) into a directory; the JAX package's
 ``jax.profiler`` writes TensorBoard / xprof files instead.
+
+:func:`span` marks a step of the program on the profiler's own timeline
+while a ``torch.profiler`` records, and costs one flag check otherwise.
+The program's spans, each at a layer boundary: ``ptx.sample`` (a turn of
+``render.progressive_render``'s sample loop: the trace and the fold),
+``ptx.launch`` (a launch of the device loop or pass, a forward or a
+backward of the device scan), ``ptx.replay`` (one CUDA graph replay, a
+whole unit or one segment of a program) and ``ptx.exchange`` (one
+collective run by ``parallel.dist``, eager or between two segments).  In
+the Chrome trace each is a ``user_annotation`` on the kernels' clock; the
+device work of one is the work launched inside it (matched by correlation
+id).
 
 The JAX package's ``compile_cache_dir`` / ``enable_compile_cache`` point
 XLA's persistent compile cache and are not ported: the port compiles no
@@ -30,8 +42,22 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _profiler
 
 log = logging.getLogger("ptx_torch")
+
+# What :func:`span` returns while no profiler records: one shared object.
+_IDLE = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager that marks its block as the span ``name``: the
+    profiler's ``record_function(name)`` while a ``torch.profiler``
+    records, else a shared no-op (no object made, no clock read, no device
+    call).  Spans nest by time: the enclosing span is the parent."""
+    if _profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _IDLE
 
 
 @dataclasses.dataclass
@@ -68,6 +94,11 @@ class Metrics:
 
     def __init__(self):
         self.phases: Dict[str, PhaseStat] = {}
+        self.counters: Dict[str, int] = {}
+
+    def count(self, name: str, n: int):
+        """Add ``n`` to the counter ``name``."""
+        self.counters[name] = self.counters.get(name, 0) + n
 
     @contextlib.contextmanager
     def phase(self, name: str, items: float = 0.0, block=None):
@@ -89,6 +120,13 @@ class Metrics:
             lines.append(
                 f"{name}: {s.seconds:.3f}s over {s.calls} calls{rate}"
             )
+        for name, n in sorted(self.counters.items()):
+            lines.append(f"{name}: {n:,}")
+        # The device loop's counters (``integrator.graphs.DeviceLoop``).
+        stepped = self.counters.get("lanes_stepped")
+        if stepped:
+            live = 100 * self.counters["lanes_live"] / stepped
+            lines.append(f"live lanes: {live:.2f}% of the lanes stepped")
         text = "\n".join(lines)
         log.info("metrics:\n%s", text)
         return text
@@ -116,7 +154,8 @@ def _device_constant(data: bytes, shape, device):
 @contextlib.contextmanager
 def profiler_trace(log_dir: Optional[str]):
     """``torch.profiler`` trace scope (no-op when ``log_dir`` is None): the
-    host's operators and, with a card, its kernels, written on exit as
+    host's operators, the program's spans (:func:`span`) and, with a card,
+    its kernels, written on exit as
     ``<log_dir>/ptx_torch_<pid>_<time>.trace.json`` (Chrome trace format)."""
     if log_dir is None:
         yield

@@ -15,7 +15,9 @@ step of
 after the Adam update and the class of its integrator, or the
 ``ValueError`` it raised and the collective calls made before it; a case
 of :data:`DEVICE_SCAN` also ``<case>.scan.rank<r>.npz``, the same step on
-the device scan); then, in ``mesh.rank<r>.json``,
+the device scan); the case :data:`SPANS` again under a CPU ``torch.profiler``,
+its ``ptx.exchange`` spans and collective calls in ``spans.rank<r>.json``;
+then, in ``mesh.rank<r>.json``,
 whether every mesh of a layout reused the groups of its first.  Imports
 only ``ptx_torch`` and numpy; the test imports :data:`CASES` and builds
 the references.
@@ -134,6 +136,12 @@ DEVICE_SCAN = ("grad_dp1_tp2_reduce_pallas", "grad_dp1_tp2_ring_brute",
                "grad_tex_tp2_sharded")
 
 
+# The tp render profiled once more: each collective run (the exchanges of
+# its chunk steps, the world's live counts, the gather of the carry) is one
+# ``ptx.exchange`` span.
+SPANS = "compact_dp1_tp2_reduce"
+
+
 def grad_target(cfg):
     """The training step's target image [W * H, 3], from TARGET_SEED."""
     import numpy as np
@@ -241,6 +249,7 @@ def main(out_dir: str) -> int:
 
     import numpy as np
     import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
 
     from ptx_torch import render as R
     from ptx_torch.parallel import dist as pdist
@@ -279,6 +288,15 @@ def main(out_dir: str) -> int:
 
         if spec["kind"] == "render":
             save(name, render(config(spec)))
+            if name == SPANS:
+                calls = pdist.STATS.calls
+                with profile(activities=[ProfilerActivity.CPU]) as prof:
+                    render(config(spec))
+                spans = sum(e.name == "ptx.exchange" for e in prof.events())
+                with open(os.path.join(out_dir, f"spans.rank{rank}.json"),
+                          "w") as f:
+                    json.dump(dict(spans=spans,
+                                   calls=pdist.STATS.calls - calls), f)
             if name in HOST_LOOP:
                 save(f"{name}.host", host_loop(render, config(spec)))
                 with open(os.path.join(out_dir, f"{name}.route.rank{rank}"),

@@ -185,8 +185,9 @@ def test_metrics_phases(scene, tmp_path):
     render.render(fs, static, _cfg(3, samples_per_launch=1), device="cpu",
                   checkpoint_path=str(tmp_path / "c.npz"), checkpoint_every=1,
                   metrics=m)
-    assert set(m.phases) == {"trace", "accumulate", "checkpoint", "finalize"}
-    assert m.phases["trace"].calls == m.phases["accumulate"].calls == 3
+    # The device pass folds inside "trace": it has no "accumulate" phase.
+    assert set(m.phases) == {"trace", "checkpoint", "finalize"}
+    assert m.phases["trace"].calls == 3
     assert m.phases["checkpoint"].calls == 3  # samples 1 and 2, the final 3
     assert m.phases["finalize"].calls == 1
     assert m.phases["trace"].items == 3 * 16 * 16
@@ -197,3 +198,9 @@ def test_metrics_phases(scene, tmp_path):
     with m.phase("other", block=(torch.zeros(2), {"x": torch.ones(1)})):
         pass
     assert m.phases["other"].calls == 1
+    # The plain shader traces, then folds in "accumulate".
+    plain = Metrics()
+    render.render(fs, static, _cfg(2, samples_per_launch=1, shader="xla"),
+                  device="cpu", metrics=plain)
+    assert set(plain.phases) == {"trace", "accumulate", "finalize"}
+    assert plain.phases["trace"].calls == plain.phases["accumulate"].calls == 2

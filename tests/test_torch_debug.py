@@ -111,7 +111,9 @@ def test_cli_checkpoint_metrics_profile(tmp_path):
         assert phase in run.stderr
     (trace,) = glob.glob(os.path.join(prof, "*.trace.json"))
     with open(trace) as f:
-        assert json.load(f)["traceEvents"]
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name") for e in events if e.get("cat") == "user_annotation"]
+    assert names.count("ptx.sample") == 1, names
     # Run again: the finished checkpoint resumes to the same image.
     image = read_png(out)
     _cli("--samples", "2", "--intersector", "bvh", "--checkpoint", ckpt,

@@ -148,6 +148,21 @@ def test_make_mesh_reuses_each_layouts_groups(worlds, world):
         assert got["reused"] and got["meshes"] > got["layouts"] >= 2, got
 
 
+def test_exchange_spans_count_the_collectives(worlds):
+    """A profiled tp render: on each rank one ``ptx.exchange`` span per
+    collective run (``dist.STATS.calls``)."""
+    import json
+
+    out, errors = worlds
+    world = W.CASES[W.SPANS]["world"]
+    for r in range(world):
+        path = os.path.join(out, f"spans.rank{r}.json")
+        assert os.path.exists(path), errors[world]
+        with open(path) as f:
+            got = json.load(f)
+        assert got["calls"] > 0 and got["spans"] == got["calls"], got
+
+
 @pytest.mark.parametrize("name", ["cli_dp2", "cli_tp2_ring"])
 def test_cli_distributed_on_the_cpu(worlds, name):
     """``render --distributed --device cpu`` under two ranks of torchrun's
