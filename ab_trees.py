@@ -59,7 +59,7 @@ KERNELS = ("closest", "closest_stats", "any")
 SMALL_KERNELS = ("closest_small", "any_small")
 # The sample loop's cells (the smoke cell's config with these fields) and
 # the order of their timed turns.
-LOOP_CELLS = (("tile", {}), ("bvh", {"intersector": "bvh"}))
+LOOP_CELLS = (("tile", {"intersector": "pallas"}), ("bvh", {"intersector": "bvh"}))
 LOOP_TURNS = ("tile", "bvh", "bvh", "tile", "tile", "bvh")
 
 
@@ -310,7 +310,8 @@ def worker(root: str, sweeps_only: bool, loop_only: bool = False) -> dict:
     _build.load()
     ptxas = [ln.strip() for ln in _build.build_log.splitlines()
              if "_kernel" in ln or "registers" in ln or "spill" in ln]
-    cfg = R.RenderConfig(width=256, height=256, samples=4, bounces=4)
+    cfg = R.RenderConfig(width=256, height=256, samples=4, bounces=4,
+                         intersector="pallas")
     fs_np, static_np = R.load_scene(SCENE)
     fs, static = R.ensure_accel(fs_np, static_np, cfg, device=dev)
     rec = {"root": root, "ptxas": ptxas}

@@ -40,10 +40,14 @@ Phases (any failure raises, and the exit code is then non-zero):
    on seeded random inputs that reach every branch, the shade kernel under
    the three quirk sets, with and without a sun; the setup timed at 32,768
    and 8,192 lanes (the record keeps the chunk's);
-5. the main path: ``ptx_torch.render.render`` on ``arch:300000`` at
-   256x256, 4 spp, 4 bounces with the default config (shader "auto", the
-   fused kernels, the device pass of phase 15), with every kernel's launch
-   count (one shadow-ray setup per shade step); then the sample loop
+5. the main path of the tile traversal: ``ptx_torch.render.render`` on
+   ``arch:300000`` at 256x256, 4 spp, 4 bounces with intersector "pallas"
+   named (phases 3, 12 (d), 13 and 15 take the same config; shader "auto",
+   the fused kernels, the device pass of phase 15), with every kernel's
+   launch count (one shadow-ray setup per shade step); the same render
+   with intersector "auto", which on the card takes the walk: the
+   walk's, sun and shade kernels launched and no plan or sweep,
+   its image against the tile traversal's; then the sample loop
    with shader "xla" and "auto" in turns (paths/s, device kernels per
    sample), and the two images against each other; then 64x64, 2 spp
    through the kernels against the plain brute-force intersector;
@@ -141,7 +145,12 @@ Phases (any failure raises, and the exit code is then non-zero):
    3 turns each, the device scan's idle split over one value and gradient
    (``replay_split``), its graphs, capture seconds, pool bytes and segments
    per step, peak device memory of each scan, and the collective helpers'
-   calls and bytes in a step.
+   calls and bytes in a step; (g) in the same ranks, tp=2 reduce under
+   intersector "auto", where each shard (~137k triangles) takes the walk:
+   the walk's kernels launched on each rank and no tile kernel, both
+   ranks' images equal, each bit-equal to its host loop (color, alpha,
+   PNG bytes), against the main path's image.  Layouts (b)-(f) name the
+   tile traversal ("pallas").
 13. the device loop (``ptx_torch.integrator.graphs.DeviceLoop``: CUDA
    graphs of the chunk step and the sort, the live count read one
    iteration late), the fused integrator's loop in phases 5-12 too:
@@ -182,7 +191,13 @@ Phases (any failure raises, and the exit code is then non-zero):
    ``render_grad`` at 32x32 (DIFF_FIELDS; ``tri_a``, whose tiles are
    packed inside each step) and ``make_batch_loss_fn`` over two sample
    groups (the first group's forward run again before its backward)
-   through both scans, loss bit-equal, gradients within ROUTE_REL_L2.
+   through both scans, loss bit-equal, gradients within ROUTE_REL_L2;
+   (g) intersector "auto": DIFF_FIELDS on the walk (its kernels launched,
+   no tile kernel), the device scan's loss bit-equal to the host scan's
+   and its gradients within ROUTE_REL_L2; ``tri_a`` on the tile traversal
+   (``ensure_accel`` packs its tiles; no walk launched), its loss
+   bit-equal to the same set under "pallas" and its gradients within
+   ROUTE_REL_L2.  (a)-(f) name the tile traversal ("pallas").
 15. the device pass (``ptx_torch.integrator.graphs.DevicePass``: per
    launch one scalar copy, a prologue graph of the ids and camera rays, the
    device loop, an epilogue graph folding the launch into the carry in
@@ -277,6 +292,8 @@ REPLACES = {
 }
 # The kernels each path must launch.
 MAIN_PATH_KERNELS = ("exact_gate", "closest", "any", "sun", "shade")
+# The tile traversal's kernels, none of which the walk's route may launch.
+TILE_KERNELS = ("exact_gate", "closest", "any", "closest_small", "any_small")
 SMALL_PATH_KERNELS = ("closest_small", "any_small", "sun", "shade")
 BENCH_PATH_KERNELS = MAIN_PATH_KERNELS + ("closest_stats",)
 BENCH_EXTRAS = ("pallas_intersect_roofline", "pallas_roofline_arch",
@@ -1040,6 +1057,35 @@ def image_agreement(a, b):
         float((a.alpha == b.alpha).mean()),
         float((abs(a.image.astype(int) - b.image.astype(int)).max(-1) <= 1).mean()),
     )
+
+
+def check_auto_render(fs_np, static_np, cfg, dev, tiled):
+    """Phase 5: ``render`` at ``cfg`` with intersector "auto", which on the
+    card takes the walk: the walk's, sun and shade kernels
+    launched and no tile kernel, its image against ``tiled`` (the tile
+    traversal's at ``cfg``)."""
+    import torch
+
+    from ptx_torch import render as R
+    from ptx_torch.kernels import _build
+
+    auto = dataclasses.replace(cfg, intersector="auto")
+    _build.reset_launches()
+    got = R.render(fs_np, static_np, auto, device=dev)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    log(f"main path under \"auto\": launches {launches}")
+    walk = {k: launches[k] for k in BVH_PATH_KERNELS}
+    swept = {k: launches[k] for k in TILE_KERNELS}
+    if min(walk.values()) <= 0 or any(swept.values()):
+        raise AssertionError(f"\"auto\" did not take the walk: {walk}, tile "
+                             f"kernels {swept}")
+    color_share, alpha_share, image_share = image_agreement(got, tiled)
+    log(f"\"auto\" (the walk) vs the tile traversal, 256x256 4spp: "
+        f"|dcolor|<={COLOR_ATOL} on {color_share:.4f}, alpha equal on "
+        f"{alpha_share:.4f}, uint8 within 1 on {image_share:.4f}")
+    if min(color_share, alpha_share, image_share) < MIN_PIXEL_SHARE:
+        raise AssertionError("the walk's image disagrees with the tiles'")
 
 
 def check_png(path, width, height):
@@ -2167,7 +2213,7 @@ def rank_worker(port: int, rank: int, out: str, spec: dict) -> int:
                             route=run.get("route"), graphs=run.get("graphs"),
                             **extra)
 
-    cfg = R.RenderConfig(**spec["shape"])
+    cfg = R.RenderConfig(intersector="pallas", **spec["shape"])
     fs, static = R.load_scene(spec["scene"])
     for name, dp, tp, comm in DIST_LAYOUTS:
         run = run_layout(fs, static, cfg, pmesh.Plan(dp, tp, tp > 1), comm,
@@ -2191,9 +2237,17 @@ def rank_worker(port: int, rank: int, out: str, spec: dict) -> int:
         np.savez(os.path.join(out, f"grad_{name}.rank{rank}.npz"), **arrays)
         report[f"grad_{name}"] = run
 
+    # tp=2 reduce on the walk: "auto" on the card (a CPU rehearsal names
+    # the route "auto" takes there).
+    walk = dataclasses.replace(
+        cfg, intersector="auto" if dev.type == "cuda" else "bvh")
+    save("tp2_walk", run_layout(fs, static, walk, pmesh.Plan(1, 2, True),
+                                "reduce", dev, timed=0, plain=plain,
+                                host=True))
+
     tex_fs, tex_static = flatten(make_textured_quads(3))
     tex_cfg = R.RenderConfig(environment_factor=(0.0, 0.0, 0.0),
-                             **spec["tex_shape"])
+                             intersector="pallas", **spec["tex_shape"])
     for shard in (False, True):
         save(f"tex_{'sharded' if shard else 'replicated'}",
              run_layout(tex_fs, tex_static, tex_cfg,
@@ -2669,6 +2723,22 @@ def check_distributed(dev, single, cfg, smi, scene=SLICE_SCENE,
                          smi)
         del fs1
 
+        # (g) tp=2 reduce under "auto": each shard takes the walk.
+        got = check_ranks("tp2_walk", BVH_PATH_KERNELS)
+        for r, rep in enumerate(reports):
+            swept = {k: rep["tp2_walk"]["launches"][k] for k in TILE_KERNELS}
+            if dev.type == "cuda" and any(swept.values()):
+                raise AssertionError(f"rank {r} tp2_walk launched tile "
+                                     f"kernels: {swept}")
+        hold_host_loop("tp2_walk", reports, image, tmp)
+        color_share, alpha_share, image_share = image_agreement(got, single)
+        log(f"(g) tp2_walk (tp=2 reduce, \"auto\") vs the main path's tile "
+            f"traversal: |dcolor|<={COLOR_ATOL} on {color_share:.5f}, alpha "
+            f"equal on {alpha_share:.5f}, uint8 within 1 on {image_share:.5f}")
+        if min(color_share, alpha_share, image_share) < MIN_PIXEL_SHARE:
+            raise AssertionError("tp2_walk disagrees with the single-device "
+                                 "image")
+
         rep_img = check_ranks("tex_replicated", TEX_KERNELS)
         shd_img = check_ranks("tex_sharded", TEX_KERNELS)
         hold_host_loop("tex_sharded", reports, image, tmp)
@@ -2678,7 +2748,8 @@ def check_distributed(dev, single, cfg, smi, scene=SLICE_SCENE,
                                  "pack")
         tex_fs, tex_static = flatten(make_textured_quads(3))
         tex_single = R.render(tex_fs, tex_static, R.RenderConfig(
-            environment_factor=(0.0, 0.0, 0.0), **tex_shape), device=dev)
+            environment_factor=(0.0, 0.0, 0.0), intersector="pallas",
+            **tex_shape), device=dev)
         dmax = float(np.abs(shd_img.color - tex_single.color).max())
         np.testing.assert_allclose(shd_img.color, tex_single.color,
                                    rtol=1e-5, atol=1e-6)
@@ -3356,6 +3427,67 @@ def scan_costs(tag, vgs, scan, params, fs, dev, smi, profiled=True):
         f"{'not measured' if pool is None else f'{pool:,} bytes'}")
 
 
+def scan_on_auto(fs_np, static_np, cfg, dev):
+    """(g) intersector "auto" on the card for the backward rows' scene at
+    ``cfg``: a material set (DIFF_FIELDS) takes the walk, its device
+    scan's loss bit-equal to the host scan's and its gradients within
+    ROUTE_REL_L2; a geometry set (``tri_a``) takes the tile traversal, its
+    tiles packed by ``ensure_accel``, its loss bit-equal to the same set
+    under "pallas" (the route "auto" took on the card before it took the
+    walk) and its gradients within ROUTE_REL_L2.  Each route's kernels are
+    launched and the other's not.  A CPU rehearsal names the route "auto"
+    takes on a card."""
+    import torch
+
+    from ptx_torch import render as R
+    from ptx_torch.diff import inverse
+    from ptx_torch.kernels import _build
+
+    cuda = dev.type == "cuda"
+    auto = dataclasses.replace(cfg, intersector="auto")
+    target = grad_target(cfg, dev)
+    for fields, want in ((DIFF_FIELDS, "bvh"), (("tri_a",), "pallas")):
+        c = auto if cuda else dataclasses.replace(cfg, intersector=want)
+        fs, static = R.ensure_accel(fs_np, static_np, c, device=dev,
+                                    param_fields=fields)
+        route = R.resolve_intersector(static, auto, "cuda", fields)
+        if route != want or (fs.ptiles.shape[0] > 0) != (want == "pallas"):
+            raise AssertionError(f"{fields}: \"auto\" resolved to {route}, "
+                                 f"{fs.ptiles.shape[0]} tiles packed")
+        params = {f: getattr(fs, f) for f in fields}
+        _build.reset_launches()
+        if want == "bvh":
+            host, scan = scan_pair(static, c, fields, dev)
+            hold_scan("(g) materials under \"auto\" (the walk)",
+                      scan_vgs(host, scan, c, target, fields), scan, params,
+                      fs)
+            launches = dict(_build.LAUNCHES)
+            kernels, others = ("bvh_closest", "bvh_any"), TILE_KERNELS
+        else:
+            v_a, g_a = inverse.make_batch_value_and_grad_fn(
+                static, c, target, c.samples, param_fields=fields)(params, fs)
+            launches = dict(_build.LAUNCHES)
+            v_p, g_p = inverse.make_batch_value_and_grad_fn(
+                static, cfg, target, cfg.samples, param_fields=fields)(params,
+                                                                       fs)
+            errs = {f: rel_l2(g_a[f], g_p[f]) for f in fields}
+            log(f"(g) tri_a under \"auto\" (the tile traversal): loss "
+                f"{float(v_a):.9g}, under \"pallas\" {float(v_p):.9g} "
+                f"({'bit-equal' if torch.equal(v_a, v_p) else 'DIFFERENT'}); "
+                "gradients relative L2 " + ", ".join(
+                    f"{f} {e:.3g}" for f, e in errs.items()))
+            if not torch.equal(v_a, v_p) or max(errs.values()) > ROUTE_REL_L2:
+                raise AssertionError("tri_a under \"auto\" differs from "
+                                     "\"pallas\"")
+            kernels, others = ("exact_gate", "closest", "any"), (
+                "bvh_closest", "bvh_any")
+        log(f"(g) {want} launches: " + ", ".join(
+            f"{k} {launches[k]}" for k in kernels + others))
+        if cuda and (min(launches[k] for k in kernels) <= 0
+                     or any(launches[k] for k in others)):
+            raise AssertionError(f"{fields}: \"auto\" launched {launches}")
+
+
 def scan_entry_points(fs, static, cfg, dev, small):
     """(f) the loss functions that are not the chunked value and gradient,
     each through the host scan and through the device scan
@@ -3485,6 +3617,7 @@ def check_device_scan(dev, smi, scene=None, shape=None, frame=SCAN_FRAME,
     scan_launches("translucent", host, scan, fs_t, params, cfg, dev)
     del host, scan, vgs, fs_t
     scan_entry_points(fs, static, cfg, dev, small)
+    scan_on_auto(fs_np, static_np, cfg, dev)
     return rates
 
 
@@ -3771,8 +3904,10 @@ def main() -> int:
     check_rcp(dev)
 
     phase_time(2)
-    # 3. traversal kernels vs plain versions at the slice's shapes
-    cfg = R.RenderConfig(width=256, height=256, samples=4, bounces=4)
+    # 3. traversal kernels vs plain versions at the slice's shapes.  The tile
+    # traversal is named: "auto" takes the walk on this scene (phase 5).
+    cfg = R.RenderConfig(width=256, height=256, samples=4, bounces=4,
+                         intersector="pallas")
     t0 = time.perf_counter()
     fs_np, static_np = R.load_scene(SLICE_SCENE)
     fs, static = R.ensure_accel(fs_np, static_np, cfg, device=dev)
@@ -3847,6 +3982,7 @@ def main() -> int:
     log(f"main path: {SLICE_SCENE} 256x256 4spp 4 bounces, render() "
         f"{wall:.2f} s = {paths / wall:,.0f} paths/s incl. BVH and upload "
         f"(mean color {res.color.mean():.4f}; {smi})")
+    check_auto_render(fs_np, static_np, cfg, dev, res)
 
     # Shader A/B on the sample loop, in turns: xla, auto, auto, xla.
     fs_a, static_a = R.ensure_accel(fs_np, static_np, cfg, device=dev)

@@ -216,7 +216,7 @@ def main(argv=None) -> int:
         backward(args.scene, shape, dev, world, rank, cards, log)
         multihost.shutdown()
         return 0
-    cfg = R.RenderConfig(**shape)
+    cfg = R.RenderConfig(intersector="pallas", **shape)
     paths = cfg.width * cfg.height * cfg.samples
     fs, static = R.load_scene(args.scene)
     log(f"{world} ranks, {args.scene} {cfg.width}x{cfg.height} {cfg.samples} spp "

@@ -164,9 +164,8 @@ def cmd_render(args) -> int:
         return 0
 
     shader = R.resolve_shader(cfg)
-    print(f"device {device}: intersector "
-          f"{R.resolve_intersector(static, cfg, device)}, shader {shader} "
-          f"({SHADERS[shader]})", file=sys.stderr)
+    print(f"device {device}: shader {shader} ({SHADERS[shader]})",
+          file=sys.stderr)
 
     def progress(done, total):
         print(f"\rsample {done}/{total}", end="", file=sys.stderr)

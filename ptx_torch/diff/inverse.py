@@ -25,7 +25,9 @@ raises ``ValueError``: the BVH's nodes are never refit when the vertices
 move, so the walk would miss triangles that leave their build-time boxes
 (the limitation the JAX package documents).  Geometry parameters take the
 "pallas" intersector, whose tiles are packed from the current vertices
-(``tiles.pack_tris``), or "brute".
+(``tiles.pack_tris``), or "brute"; "auto" resolves to "pallas" for them on
+a card whatever the scene's size (``render.resolve_intersector``, which the
+entry points below ask with their ``param_fields``).
 """
 
 from __future__ import annotations
@@ -107,6 +109,12 @@ def extract_params(fs: FlatScene, fields: Sequence[str]) -> Dict[str, torch.Tens
     return {f: getattr(fs, f) for f in fields}
 
 
+def moves_geometry(param_fields: Sequence[str]) -> bool:
+    """Whether the set holds a geometry field (``tri_a``, ``tri_e1``,
+    ``tri_e2``)."""
+    return bool(set(param_fields) & set(_GEOM_ATTR_COLS))
+
+
 def diff_backend(static, cfg, closest, any_hit, param_fields, device):
     """The backend pair of the general differentiable scan for
     ``param_fields``: ``(closest, any_hit)`` as given, except that a set
@@ -114,10 +122,10 @@ def diff_backend(static, cfg, closest, any_hit, param_fields, device):
     (the [T, 3] vertex leaves take the gradient, not the [T, 40]
     ``tri_attrs`` rows) and is refused under "bvh".  A caller that wraps
     the pair (``parallel.dist``'s exchanges) wraps what this returns."""
-    if set(param_fields) & set(_GEOM_ATTR_COLS):
+    if moves_geometry(param_fields):
         from ptx_torch.render import resolve_intersector
 
-        name = resolve_intersector(static, cfg, device)
+        name = resolve_intersector(static, cfg, device, param_fields)
         if name == "bvh":
             raise ValueError(
                 "geometry parameters (tri_a, tri_e1, tri_e2) under the bvh "
@@ -140,7 +148,7 @@ def scan_fields(param_fields: Sequence[str]):
     grad, copy = list(param_fields), []
     if set(param_fields) & set(_MAT_PACKED_COLS):
         grad.append("mat_packed")
-    if set(param_fields) & set(_GEOM_ATTR_COLS):
+    if moves_geometry(param_fields):
         grad.append("tri_attrs")
         copy += ["ptiles", "pboxes"]
     return tuple(grad), tuple(copy)
@@ -184,11 +192,11 @@ def _resolve_diff_integrator(static, cfg, closest, any_hit, param_fields,
         device)
 
 
-def _backend(static, cfg, device, closest, any_hit):
+def _backend(static, cfg, device, closest, any_hit, param_fields):
     if closest is None or any_hit is None:
         from ptx_torch.render import get_backend
 
-        return get_backend(static, cfg, device)
+        return get_backend(static, cfg, device, param_fields=param_fields)
     return closest, any_hit
 
 
@@ -201,7 +209,8 @@ def make_loss_fn(static: SceneStatic, cfg: RenderConfig, target: torch.Tensor,
     dark by the Monte Carlo variance; :func:`make_batch_loss_fn` with the
     same sample set recovers the parameters exactly.)"""
     device = target.device
-    closest, any_hit = _backend(static, cfg, device, closest, any_hit)
+    closest, any_hit = _backend(static, cfg, device, closest, any_hit,
+                                param_fields)
     integrator = _resolve_diff_integrator(static, cfg, closest, any_hit,
                                           param_fields, device)
     n_pixels = cfg.width * cfg.height
@@ -236,7 +245,8 @@ def make_batch_loss_fn(static: SceneStatic, cfg: RenderConfig,
     from ptx_torch.render import MAX_RAYS_PER_LAUNCH
 
     device = target.device
-    closest, any_hit = _backend(static, cfg, device, closest, any_hit)
+    closest, any_hit = _backend(static, cfg, device, closest, any_hit,
+                                param_fields)
     integrator = _resolve_diff_integrator(static, cfg, closest, any_hit,
                                           param_fields, device)
     n_pixels = cfg.width * cfg.height
@@ -296,7 +306,8 @@ def make_batch_value_and_grad_fn(static: SceneStatic, cfg: RenderConfig,
     per call from the detached parameters (they only select the winners;
     gradients flow through the epilogue's recompute)."""
     device = target.device
-    closest, any_hit = _backend(static, cfg, device, closest, any_hit)
+    closest, any_hit = _backend(static, cfg, device, closest, any_hit,
+                                param_fields)
     integrator = _resolve_diff_integrator(static, cfg, closest, any_hit,
                                           param_fields, device)
     n_pixels = cfg.width * cfg.height
@@ -326,7 +337,7 @@ def slice_value_and_grad_fn(integrator, cfg: RenderConfig,
     cp = _largest_divisor_leq(count, max(1, cap // k))
     n_chunks = count // cp
     n_groups = n_samples // k
-    geom_params = bool(set(param_fields) & set(_GEOM_ATTR_COLS))
+    geom_params = moves_geometry(param_fields)
 
     def chunk_value_and_grad(leaves, fs: FlatScene, c: int):
         """Sum of squared errors over pixel chunk ``c`` and its gradients.
@@ -474,7 +485,8 @@ def run_inverse_demo(scene_path: str, cfg: RenderConfig, steps: int = 100,
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device (pass device='cpu' to run on the CPU)")
     fs, static = R.load_scene(scene_path, quirks=cfg.quirks)
-    fs, static = R.ensure_accel(fs, static, cfg, device=dev)
+    fs, static = R.ensure_accel(fs, static, cfg, device=dev,
+                                param_fields=param_fields)
     n_pixels = cfg.width * cfg.height
 
     # Target: the unperturbed scene, the mean of cfg.samples passes.

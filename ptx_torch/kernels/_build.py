@@ -65,6 +65,10 @@ LAUNCHES = {
     "any_small": 0, "sun": 0, "shade": 0, "closest_stats": 0,
     "bvh_closest": 0, "bvh_any": 0, "bvh_visits": 0,
 }
+# The intersection queries' entry points among them, of the tile traversal
+# and of the walk (``render --metrics`` reports their launches).
+INTERSECT_LAUNCHES = ("exact_gate", "closest", "any", "closest_small",
+                      "any_small", "bvh_closest", "bvh_any")
 
 _lock = threading.Lock()
 _lib = None

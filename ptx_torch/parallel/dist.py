@@ -501,7 +501,9 @@ def diff_integrator(static: SceneStatic, cfg: RenderConfig, mesh,
 
     _check_layout(static, plan, comm)
     closest, any_hit = inverse.diff_backend(
-        static, cfg, *R.get_backend(static, cfg, device), param_fields, device)
+        static, cfg, *R.get_backend(static, cfg, device,
+                                    param_fields=param_fields),
+        param_fields, device)
     closest, any_hit, live_sync, tex_shard = _exchanges(
         static, mesh, plan, comm, closest, any_hit)
     return inverse.make_diff_integrator(static, cfg, closest, any_hit,
@@ -546,8 +548,8 @@ def make_distributed_value_and_grad_fn(
 
     # No scene-axis exchange carries a gradient: the masked-sum payload of
     # a closest hit and the sharded-texel gather are all-reduces of copies.
-    geom = [f for f in param_fields if f in inverse._GEOM_ATTR_COLS]
-    if geom and plan.tp > 1:
+    if inverse.moves_geometry(param_fields) and plan.tp > 1:
+        geom = [f for f in param_fields if f in inverse._GEOM_ATTR_COLS]
         raise ValueError(
             f"geometry parameters {geom} under tp={plan.tp}: the closest "
             "hit's masked-sum payload is an all-reduce that carries no "
@@ -621,9 +623,12 @@ def make_distributed_train_step(
 
 
 def prepare_scene(fs: FlatScene, static: SceneStatic, cfg: RenderConfig,
-                  plan: pmesh.Plan, mesh, device="cuda"):
+                  plan: pmesh.Plan, mesh, device="cuda", param_fields=()):
     """Accel-build and place a scene for the plan; returns ``(fs_local,
     static_local)``, this rank's scene on ``device`` and the per-rank view.
+    ``param_fields``: the differentiable set the scene is for
+    (``render.resolve_intersector`` reads it); the intersector is resolved
+    on the per-rank view.
 
     * scene-sharded: split into shard-local chunks with per-shard BVHs
       (``ptx_torch.parallel.shard_scene``); this rank keeps its shard and,
@@ -636,7 +641,8 @@ def prepare_scene(fs: FlatScene, static: SceneStatic, cfg: RenderConfig,
     from ptx_torch.scene.bridge import to_device, to_host
 
     if not plan.scene_sharded:
-        return R.ensure_accel(fs, static, cfg, device=device)
+        return R.ensure_accel(fs, static, cfg, device=device,
+                              param_fields=param_fields)
     from ptx_torch.parallel.shard_scene import (
         build_shard_scene, build_texture_shards,
     )
@@ -647,7 +653,7 @@ def prepare_scene(fs: FlatScene, static: SceneStatic, cfg: RenderConfig,
         fs, static = build_texture_shards(fs, static, plan.tp)
     fs = pmesh.shard_scene(fs, mesh, True, shard_bvh=static.n_bvh_nodes > 0,
                            shard_tex=static.tex_shard_len > 0)
-    if R.resolve_intersector(static, cfg, device) == "pallas":
+    if R.log_intersector(static, cfg, device, param_fields) == "pallas":
         from ptx_torch.kernels.tiles import attach_tiles
 
         fs = attach_tiles(fs)

@@ -8,8 +8,10 @@ the port's copy of the JAX package's, with the same fields and meanings:
   on a CUDA device, their plain versions on the CPU); "bvh" is the
   stackless BVH walk (``csrc/bvh_traverse.cu`` on a CUDA device, the plain
   walk ``accel/traverse.py`` on the CPU); "brute" is the plain brute-force
-  sweep; "auto" picks "pallas" on CUDA and follows the JAX package's CPU
-  rule otherwise ("brute" up to 65,536 padded triangles, else "bvh").
+  sweep; "auto" (:func:`resolve_intersector`) picks "bvh" on CUDA, but
+  "pallas" for a differentiable set that moves the geometry, and follows
+  the JAX package's CPU rule elsewhere ("brute" up to 65,536 padded
+  triangles, else "bvh").
 * ``shader``: "pallas" is the fused shade schedule (the CUDA sun and shade
   kernels on a CUDA device, their plain versions on the CPU); "xla" is the
   plain torch shade stage; "auto" follows the JAX package: "pallas" when a
@@ -72,15 +74,39 @@ def load_scene(path: str, device=None, scene_work=None, env_image=None,
     return (to_device(fs, device) if device is not None else fs), static
 
 
-def resolve_intersector(static: SceneStatic, cfg: RenderConfig, device) -> str:
+def resolve_intersector(static: SceneStatic, cfg: RenderConfig, device,
+                        param_fields=()) -> str:
+    """The intersector ``cfg.intersector`` runs on ``device``.  "auto" on a
+    CUDA device is the BVH walk, which on the card outruns the planned
+    sweeps and, at four tiles or fewer, the small sweeps; a differentiable
+    ``param_fields`` set that holds a geometry field takes the tile
+    traversal, since the BVH is never refit when the vertices move.  On
+    the CPU "auto" is the JAX package's rule: "brute" up to 65,536 padded
+    triangles, else "bvh"."""
     name = cfg.intersector
     if name == "auto":
-        if torch.device(device).type == "cuda":
-            name = "pallas"
-        else:
+        if torch.device(device).type != "cuda":
             name = "brute" if static.n_tris_padded <= 65536 else "bvh"
+        else:
+            from ptx_torch.diff.inverse import moves_geometry
+
+            name = "pallas" if moves_geometry(param_fields) else "bvh"
     if name not in ("brute", "bvh", "pallas"):
         raise ValueError(f"unknown intersector {name!r}")
+    return name
+
+
+def log_intersector(static: SceneStatic, cfg: RenderConfig, device,
+                    param_fields=()) -> str:
+    """:func:`resolve_intersector`'s answer, printed on stderr with what
+    it was decided from; returns it."""
+    from ptx_torch.kernels.tiles import TT
+
+    name = resolve_intersector(static, cfg, device, param_fields)
+    print(f"intersector {name} ({cfg.intersector!r} on "
+          f"{torch.device(device).type}, {static.n_tris_padded} padded "
+          f"triangles = {-(-static.n_tris_padded // TT)} tiles)",
+          file=sys.stderr)
     return name
 
 
@@ -98,16 +124,18 @@ def resolve_shader(cfg: RenderConfig) -> str:
 
 
 def ensure_accel(fs: FlatScene, static: SceneStatic, cfg: RenderConfig,
-                 device=None):
+                 device=None, param_fields=()):
     """Attach the BVH the resolved backend needs: the BVH walk always, the
     tile traversal above 2048 triangles (BVH order makes its 512-wide tiles
-    spatially tight), with its tiles packed.  Runs on the host; returns
-    tensors on ``device`` (numpy when ``device`` is None)."""
+    spatially tight), with its tiles packed.  ``param_fields``: the
+    differentiable parameter set the scene is for, which
+    :func:`resolve_intersector` reads.  Runs on the host; returns tensors
+    on ``device`` (numpy when ``device`` is None)."""
     for obj, cls in ((static, SceneStatic), (cfg, RenderConfig)):
         if not isinstance(obj, cls):
             raise TypeError(f"{type(obj).__module__}.{type(obj).__name__}: "
                             f"expected ptx_torch's {cls.__name__}")
-    name = resolve_intersector(static, cfg, device or "cpu")
+    name = log_intersector(static, cfg, device or "cpu", param_fields)
     fs = to_host(fs)
     needs_bvh = name == "bvh" or (name == "pallas" and static.n_tris > 2048)
     if needs_bvh and static.n_bvh_nodes == 0:
@@ -125,12 +153,14 @@ def ensure_accel(fs: FlatScene, static: SceneStatic, cfg: RenderConfig,
     return (to_device(fs, device) if device is not None else fs), static
 
 
-def get_backend(static: SceneStatic, cfg: RenderConfig, device, sort=None):
-    """The intersection backend pair (closest, any_hit).  ``sort=None``
+def get_backend(static: SceneStatic, cfg: RenderConfig, device, sort=None,
+                param_fields=()):
+    """The intersection backend pair (closest, any_hit) for the
+    differentiable set ``param_fields`` (none: a render).  ``sort=None``
     takes the per-call sorting wrapper from :func:`resolve_sort`; pass
     False when the caller keeps the wavefront sorted itself (the chunked
     forward loop)."""
-    name = resolve_intersector(static, cfg, device)
+    name = resolve_intersector(static, cfg, device, param_fields)
     if name == "brute":
         from ptx_torch.kernels.intersect import make_brute
 
@@ -369,9 +399,11 @@ def progressive_render(fs: FlatScene, static: SceneStatic, cfg: RenderConfig,
     too), "accumulate" the fold of the other routes (a device pass has no
     "accumulate" phase: its fold runs inside "trace").  Each turn of the
     loop, the trace and the fold, is a ``ptx.sample`` span
-    (``utils.span``); checkpoints and ``progress`` lie outside it.  On a
-    device pass the metrics also count the device loop's iterations,
-    sorts and lanes (``DeviceLoop.counters``) over the render.
+    (``utils.span``); checkpoints and ``progress`` lie outside it.  The
+    metrics also note the intersector and count the launches of each
+    intersection entry point (``_build.INTERSECT_LAUNCHES``) over the
+    render, and on a device pass the device loop's iterations, sorts and
+    lanes (``DeviceLoop.counters``).
 
     Multi-rank runs (``ptx_torch.parallel.dist.render_distributed``) carry
     only this rank's ``pixels`` = ``(start, stop)``, which its trace
@@ -440,9 +472,16 @@ def progressive_render(fs: FlatScene, static: SceneStatic, cfg: RenderConfig,
             return contextlib.nullcontext()
         return metrics.phase(name, items=items, block=block)
 
-    # The device loop's counters over this render, for the metrics' report.
+    # The route, its intersection launches and the device loop's counters
+    # over this render, for the metrics' report.
     counted = (dpass.loop.counters()
                if metrics is not None and dpass is not None else None)
+    launched = None
+    if metrics is not None:
+        from ptx_torch.kernels import _build
+
+        metrics.notes["intersector"] = resolve_intersector(static, cfg, device)
+        launched = {k: _build.LAUNCHES[k] for k in _build.INTERSECT_LAUNCHES}
     s = start
     last_ckpt = start // checkpoint_every
     while s < cfg.samples:
@@ -481,6 +520,9 @@ def progressive_render(fs: FlatScene, static: SceneStatic, cfg: RenderConfig,
         with phase("checkpoint"):
             write_checkpoint(cfg.samples)
 
+    if launched is not None:
+        for name, n in launched.items():
+            metrics.count(f"launches {name}", _build.LAUNCHES[name] - n)
     if counted is not None:
         for name, n in dpass.loop.counters().items():
             metrics.count(name, n - counted[name])

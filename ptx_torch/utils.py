@@ -95,6 +95,7 @@ class Metrics:
     def __init__(self):
         self.phases: Dict[str, PhaseStat] = {}
         self.counters: Dict[str, int] = {}
+        self.notes: Dict[str, str] = {}
 
     def count(self, name: str, n: int):
         """Add ``n`` to the counter ``name``."""
@@ -114,7 +115,7 @@ class Metrics:
             stat.items += items
 
     def report(self) -> str:
-        lines = []
+        lines = [f"{name}: {v}" for name, v in sorted(self.notes.items())]
         for name, s in sorted(self.phases.items()):
             rate = f" {s.items_per_s:,.0f}/s" if s.items else ""
             lines.append(

@@ -3,7 +3,7 @@
 (``ptx.accel.traverse``) on the same rays, each package walking the BVH it
 builds from the same scene (the arrays are bit-identical,
 ``tests/test_torch_host.py``); the ``bvh`` route of ``render``, ``auto`` on
-the CPU, and inverse rendering under ``bvh``.
+the CPU and its rule on a card, and inverse rendering under ``bvh``.
 
 Tolerances: XLA may contract Moller-Trumbore's products into fused
 multiply-adds, and the determinant and the barycentric dot products cancel
@@ -36,7 +36,9 @@ from ptx_torch import render
 from ptx_torch.accel import traverse
 from ptx_torch.config import RenderConfig as PortConfig
 from ptx_torch.diff import inverse
-from ptx_torch.kernels import _build, intersect, sorting, traverse_cuda
+from ptx_torch.kernels import _build, intersect, intersect_cuda, sorting
+from ptx_torch.kernels import traverse_cuda
+from ptx_torch.parallel import shard_scene
 from ptx_torch.scene.camera import generate_rays
 from _torch_port import port_config, port_scene
 from test_torch_render import _assert_agrees
@@ -206,14 +208,14 @@ def test_wrapper_routes_cpu_to_plain():
 
 def test_resolve_auto_and_accel():
     """``auto`` follows the JAX package on the CPU (brute up to 65,536
-    padded triangles, else bvh) and stays the tile traversal on CUDA;
-    ``ensure_accel`` builds a BVH for ``bvh`` at any size and packs no
-    tiles for it."""
+    padded triangles, else bvh) and takes the walk on CUDA
+    (:func:`test_auto_on_cuda`); ``ensure_accel`` builds a BVH for
+    ``bvh`` at any size and packs no tiles for it."""
     _, big = render.load_scene("synthetic:70000")
     _, small = render.load_scene("synthetic:3000")
     cfg = PortConfig()
     assert render.resolve_intersector(big, cfg, "cpu") == "bvh"
-    assert render.resolve_intersector(big, cfg, "cuda") == "pallas"
+    assert render.resolve_intersector(big, cfg, "cuda") == "bvh"
     assert render.resolve_intersector(small, cfg, "cpu") == "brute"
     for spec in ("synthetic:70000", "synthetic:3000"):
         jfs, jst = jrender.load_scene(spec, device=False)
@@ -224,6 +226,65 @@ def test_resolve_auto_and_accel():
     assert st.n_bvh_nodes > 0 and fs.ptiles.shape[0] == 0
     with pytest.raises(ValueError, match="ensure_accel"):
         render.get_backend(small, PortConfig(intersector="bvh"), "cpu")
+
+
+# "auto" on a card: (scene, tp, the differentiable set, the route).  The
+# walk above four tiles (arch:2000 is 5,098 triangles, 10 tiles) and at
+# four or fewer (synthetic:2000, 2,048 padded triangles: the walk outran
+# the small sweeps on the card); the tile traversal for a geometry set at
+# any size; a tp rank on its own shard (arch:300000 over 4: 68,276
+# triangles, ~134 tiles).
+AUTO_ON_CUDA = {
+    "above_four_tiles": ("arch:2000", 1, (), "bvh"),
+    "four_tiles": ("synthetic:2000", 1, (), "bvh"),
+    "geometry_set": ("arch:2000", 1, ("mat_albedo", "tri_a"), "pallas"),
+    "material_set": ("arch:2000", 1, ("mat_albedo", "mat_emissive"), "bvh"),
+    "tp4_shard": ("arch:300000", 4, (), "bvh"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(AUTO_ON_CUDA))
+def test_auto_on_cuda(case):
+    """The rule of ``render.resolve_intersector`` on a CUDA device, read
+    from the scene and the parameter set; explicit intersectors are taken
+    as given, the CPU's rule is the JAX package's, and a geometry set
+    under explicit ``bvh`` is still refused."""
+    spec, tp, fields, want = AUTO_ON_CUDA[case]
+    _, static = render.load_scene(spec)
+    cfg = PortConfig()
+    if tp > 1:
+        # One rank's view, as build_shard_scene judges it.
+        n = max(b - a for a, b in shard_scene.shard_ranges(static.n_tris, tp))
+        static = dataclasses.replace(static, n_tris=n,
+                                     n_tris_padded=-(-n // 256) * 256)
+        assert shard_scene._needs_bvh(static, cfg, "cuda")
+    assert render.resolve_intersector(static, cfg, "cuda", fields) == want
+    assert (want == "bvh") != inverse.moves_geometry(fields)
+    assert render.resolve_intersector(static, cfg, "cpu", fields) == (
+        "brute" if static.n_tris_padded <= 65536 else "bvh")
+    for name in ("brute", "bvh", "pallas"):
+        assert render.resolve_intersector(
+            static, PortConfig(intersector=name), "cuda", fields) == name
+    if inverse.moves_geometry(fields):
+        pair = inverse.diff_backend(static, cfg, None, None, fields, "cuda")
+        assert pair[0].__module__ == intersect_cuda.__name__
+        with pytest.raises(ValueError, match="refit"):
+            inverse.diff_backend(static, PortConfig(intersector="bvh"), None,
+                                 None, fields, "cuda")
+
+
+def test_auto_geometry_set_keeps_its_tiles(monkeypatch):
+    """On a CUDA-resolved route ``ensure_accel`` packs the tiles for a
+    geometry set under "auto" (the tile traversal runs it) and none for a
+    material set or a render (the walk), with a BVH for each."""
+    monkeypatch.setattr(render, "to_device", lambda fs, device: fs)
+    fs, static = render.load_scene("arch:2000")
+    for fields, tiles in ((("tri_a",), True), (("tri_e1", "tri_e2"), True),
+                          (("mat_albedo",), False), ((), False)):
+        got, st = render.ensure_accel(fs, static, PortConfig(), device="cuda",
+                                      param_fields=fields)
+        assert st.n_bvh_nodes > 0
+        assert (got.ptiles.shape[0] > 0) == tiles, fields
 
 
 BVH_RENDERS = {

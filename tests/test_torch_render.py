@@ -129,9 +129,9 @@ def test_auto_falls_back_for_unaligned():
 
 
 def test_resolution_rules():
-    _, static = render.load_scene("arch:2000")
+    _, static = render.load_scene("arch:2000")  # 10 tiles
     cfg = PortConfig()
-    assert render.resolve_intersector(static, cfg, "cuda") == "pallas"
+    assert render.resolve_intersector(static, cfg, "cuda") == "bvh"
     assert render.resolve_intersector(static, cfg, "cpu") == "brute"
     for dev in ("cuda", "cpu"):
         assert render.resolve_intersector(

@@ -27,7 +27,7 @@ from ptx_torch.config import RenderConfig
 from ptx_torch.diff import graphs as dgraphs
 from ptx_torch.diff import inverse
 from ptx_torch.integrator import graphs, wavefront
-from ptx_torch.kernels import shade_cuda
+from ptx_torch.kernels import _build, shade_cuda
 
 # A frame of two launches per sample on the device pass (CHUNK cut to 256
 # lanes, so each launch steps two chunks).
@@ -259,14 +259,22 @@ def test_device_loop_counters_wait_for_nothing(bounces, monkeypatch):
 
 def test_metrics_report_the_device_loop_counters(monkeypatch):
     """``render --metrics`` counts the device loop's iterations, sorts and
-    lanes over the render and reports the share of live lanes."""
+    lanes over the render and reports the share of live lanes, beside the
+    intersector and its entry points' launches (none on the CPU, whose
+    wrappers run the plain versions)."""
     monkeypatch.setattr(wavefront, "CHUNK", 256)
     cfg = _cfg()
     fs, static = _scene(cfg)
     m = utils.Metrics()
     render.render(fs, static, cfg, device="cpu", metrics=m)
     c = m.counters
-    assert set(c) == {"iterations", "sorts", "lanes_stepped", "lanes_live"}
+    launches = {f"launches {k}" for k in _build.INTERSECT_LAUNCHES}
+    assert set(c) == {"iterations", "sorts", "lanes_stepped",
+                      "lanes_live"} | launches
+    assert all(c[k] == 0 for k in launches)
+    assert m.notes == {"intersector": render.resolve_intersector(
+        static, cfg, "cpu")}
+    assert f"intersector: {m.notes['intersector']}" in m.report()
     assert 0 < c["lanes_live"] <= c["lanes_stepped"]
     assert c["iterations"] >= 2 * cfg.samples  # two launches a sample
     share = 100 * c["lanes_live"] / c["lanes_stepped"]
