@@ -32,10 +32,12 @@ entry points below ask with their ``param_fields``).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Sequence
 
 import torch
 
+from ptx_torch import utils
 from ptx_torch.config import RenderConfig
 from ptx_torch.integrator.wavefront import make_integrator
 from ptx_torch.scene.flatten import FlatScene, SceneStatic
@@ -271,6 +273,26 @@ def make_batch_loss_fn(static: SceneStatic, cfg: RenderConfig,
     return loss
 
 
+@dataclasses.dataclass
+class ChunkStats:
+    """What :func:`slice_value_and_grad_fn`'s functions ran since
+    :meth:`reset`: ``calls`` (values and gradients), ``chunks`` (pixel
+    chunks, each a ``ptx.chunk`` span), ``groups`` (sample-group forwards
+    handed to the integrator: one a chunk, or twice the groups past the
+    launch cap) and ``rays`` (the rays of those forwards)."""
+
+    calls: int = 0
+    chunks: int = 0
+    groups: int = 0
+    rays: int = 0
+
+    def reset(self):
+        self.calls = self.chunks = self.groups = self.rays = 0
+
+
+STATS = ChunkStats()
+
+
 def _largest_divisor_leq(n: int, cap: int, prefer: int = 128) -> int:
     """Largest divisor of ``n`` that is <= ``cap``, preferring multiples of
     ``prefer`` (the fused shade's lane rule), as
@@ -353,6 +375,8 @@ def slice_value_and_grad_fn(integrator, cfg: RenderConfig,
         wrt = list(leaves.values())
 
         def one_group(g):
+            STATS.groups += 1
+            STATS.rays += k * cp
             radiance, _ = integrator(fsx, pixel_ids, _sample_ids(g, k, cp, device))
             return radiance.reshape(k, cp, 3).sum(0)
 
@@ -389,14 +413,18 @@ def slice_value_and_grad_fn(integrator, cfg: RenderConfig,
             fs = fs._replace(ptiles=tiles, pboxes=boxes)
         leaves = {k_: v.detach().requires_grad_(True) for k_, v in params.items()}
         tot, grads = 0.0, [0.0] * len(leaves)
+        STATS.calls += 1
         for c in range(n_chunks):
-            v, g = chunk_value_and_grad(leaves, fs, c)
+            STATS.chunks += 1
+            with utils.span("ptx.chunk"):
+                v, g = chunk_value_and_grad(leaves, fs, c)
             tot = tot + v
             grads = [a if b is None else a + b for a, b in zip(grads, g)]
         return tot / denom, {
             k_: (torch.zeros_like(x) if isinstance(g, float) else g) / denom
             for (k_, x), g in zip(leaves.items(), grads)}
 
+    value_and_grad.integrator = integrator
     return value_and_grad
 
 

@@ -15,8 +15,10 @@ The program's spans, each at a layer boundary: ``ptx.sample`` (a turn of
 ``render.progressive_render``'s sample loop: the trace and the fold),
 ``ptx.launch`` (a launch of the device loop or pass, a forward or a
 backward of the device scan), ``ptx.replay`` (one CUDA graph replay, a
-whole unit or one segment of a program) and ``ptx.exchange`` (one
-collective run by ``parallel.dist``, eager or between two segments).  In
+whole unit or one segment of a program), ``ptx.exchange`` (one
+collective run by ``parallel.dist``, eager or between two segments) and
+``ptx.chunk`` (one pixel chunk's forward and backward in
+``diff.inverse.slice_value_and_grad_fn``).  In
 the Chrome trace each is a ``user_annotation`` on the kernels' clock; the
 device work of one is the work launched inside it (matched by correlation
 id).
