@@ -222,6 +222,17 @@ Phases (any failure raises, and the exit code is then non-zero):
    and bvh; (e) the device scan: a load graph per launch shape, the loss
    bit-equal and the gradients within ROUTE_REL_L2, grad-paths/s in 3
    turns against the host scan.
+16. the backward of the material gather (``ptx_row_grad``,
+   ``csrc/row_grad.cu``): (a) at 32,768 and 1,048,576 rows of 16 floats
+   into 4 materials (mixed ids, and every id on one material) and at
+   32,768 rows into 37 and 227 materials (the shared-memory limit), the
+   kernel against its plain version on CPU copies and against a second
+   call, bit for bit; (b) at 4 materials its time per call and on the
+   device against its byte bound, the plain version's time and
+   ``index_put_(accumulate=True)``'s (``library_ms``); (c) its launches
+   over one step of ``courtyard300k-1w.inverse`` and of
+   ``cornell.inverse`` (> 0, at least one per chunk), its share of a
+   profiled step's device time, and none in a frame's render.
 Each phase logs its seconds.  Every kernel's bound (the least time the
 card could take for the work of the timed launch: its operations at the
 float32 peak or its bytes at the HBM rate, whichever is larger) is
@@ -289,6 +300,8 @@ REPLACES = {
     "bvh_closest": ("ptx_torch/csrc/bvh_traverse.cu", "ptx/accel/traverse.py:25"),
     "bvh_any": ("ptx_torch/csrc/bvh_traverse.cu", "ptx/accel/traverse.py:25"),
     "bvh_visits": ("ptx_torch/csrc/bvh_traverse.cu", "ptx/accel/traverse.py:102"),
+    # Replaces no Pallas kernel: XLA's transpose of the material gather.
+    "row_grad": ("ptx_torch/csrc/row_grad.cu", None),
 }
 # The kernels each path must launch.
 MAIN_PATH_KERNELS = ("exact_gate", "closest", "any", "sun", "shade")
@@ -3378,7 +3391,8 @@ def scan_launches(tag, host, scan, fs, params, cfg, dev):
                 f"scan, {v} on the host scan over {s['host_steps']} steps, "
                 f"{s['dead_steps']} all-dead")
     if dev.type == "cuda":
-        for name in SCAN_KERNELS:
+        # Material parameters: the backward of their gather is row_grad's.
+        for name in SCAN_KERNELS + ("row_grad",):
             if not counts["device"].get(name):
                 raise AssertionError(f"(c) {tag}: the device scan never "
                                      f"launched the {name} kernel")
@@ -3868,6 +3882,194 @@ def check_device_pass(fs_np, static_np, cfg, dev, smi):
     return rates
 
 
+# Phase 16: the backward of the material gather (``csrc/row_grad.cu``) at
+# the inverse cells' shapes: a chunk's 32,768 rays and a million, 4
+# materials of 16 floats (the courtyard's and the Cornell Box's), mixed ids
+# and every id on one material; then more materials, the last at the
+# shared-memory limit (227: 232,448 bytes a block).  The inverse cells
+# whose one step's launches phase 16 counts: (configuration, traffic).
+ROW_GRAD_CASES = ((1 << 15, 4, "mixed"), (1 << 15, 4, "one"),
+                  (1 << 20, 4, "mixed"), (1 << 20, 4, "one"),
+                  (1 << 15, 37, "mixed"), (1 << 15, 227, "mixed"))
+ROW_GRAD_COLS = 16
+INVERSE_CELLS = (("courtyard300k-1w", "inverse"), ("cornell", "recover"))
+
+
+def row_grad_inputs(rows, m, ids, seed):
+    """Seeded gradient rows [rows, 16] whose magnitudes span many binades
+    (the order of a sum shows in its bits) and their ids, on the CPU."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    scale = torch.exp(torch.randn((rows, 1), generator=gen) * 4.0)
+    grad = torch.randn((rows, ROW_GRAD_COLS), generator=gen) * scale
+    if ids == "one":
+        idx = torch.full((rows,), m - 1, dtype=torch.int64)
+    else:
+        idx = torch.randint(0, m, (rows,), generator=gen)
+    return grad, idx
+
+
+def cell_step(config, traffic, dev):
+    """``(cfg, fs, value_and_grad, params)`` of one inverse cell of the
+    benchmark (``benchmark/configs``, ``benchmark/traffic``) at its own
+    shape, its parameters at their initial values; a seeded random target
+    (the count of launches does not depend on it)."""
+    import torch
+
+    from ptx_torch import render as R
+    from ptx_torch.config import Quirks, RenderConfig
+    from ptx_torch.diff import inverse
+
+    def read(*path):
+        with open(os.path.join(ROOT, "benchmark", *path)) as f:
+            return json.load(f)
+
+    conf = read("configs", f"{config}.json")
+    job = read("traffic", f"{traffic}.json")
+    fields = job["fields"]
+    cfg = RenderConfig(**job["job"], quirks=Quirks(**conf["semantics"]),
+                       **conf["renderer"])
+    scene = conf["scene"]
+    if not scene.startswith(("arch:", "synthetic:")):
+        scene = os.path.join(ROOT, scene)
+    fs, static = R.load_scene(scene, quirks=cfg.quirks)
+    fs, static = R.ensure_accel(fs, static, cfg, device=dev,
+                                param_fields=tuple(fields))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    target = torch.rand((cfg.width * cfg.height, 3), generator=gen, device=dev)
+    vg = inverse.make_batch_value_and_grad_fn(static, cfg, target, cfg.samples,
+                                              param_fields=tuple(fields))
+    params = {f: torch.full_like(getattr(fs, f), spec["init"])
+              for f, spec in fields.items()}
+    return cfg, fs, vg, params
+
+
+def row_grad_device_ms(call, calls: int = 5, tries: int = 3):
+    """``(ms, by)``: the device time of one call of ``call`` (its two
+    kernels), from a profile of ``calls`` calls that holds both kernels of
+    every call; the trace can miss events, so up to ``tries`` profiles,
+    then a CUDA graph of 20 calls."""
+    for _ in range(tries):
+        us = [t for name, t in device_events(call, calls) if "row_grad_" in name]
+        if len(us) == 2 * calls:
+            return sum(us) / 1e3 / calls, "profiler"
+    return graph_ms(call), "a CUDA graph of 20 calls"
+
+
+def check_row_grad(dev, smi, timing, errs):
+    """Phase 16: the ``row_grad`` kernel (the backward of the material
+    gather, ``kernels/gather_cuda.py``) on the card: (a) on each of
+    ROW_GRAD_CASES against its plain version on CPU copies, bit for bit,
+    and against itself on a second call (bit for bit); (b) at 4 materials,
+    its time per call (CUDA events), its device time (the profiler: its two
+    kernels), its byte bound, the plain version's time on the card, and
+    ``index_put_(accumulate=True)``, autograd's backward of the gather and
+    the yardstick the port no longer calls (``library_ms``); (c) its
+    launches over one step of each of INVERSE_CELLS (after a step that
+    captures the graphs), its share of a profiled step's device time, and
+    none in a frame's render.  Returns the launches of the first cell's
+    step."""
+    import torch
+
+    from ptx_torch import render as R
+    from ptx_torch.diff import inverse
+    from ptx_torch.kernels import _build, gather_cuda
+
+    worst = 0.0
+    for n, (rows, m, ids) in enumerate(ROW_GRAD_CASES):
+        grad, idx = row_grad_inputs(rows, m, ids, 11 + n)
+        grad_d, idx_d = grad.to(dev), idx.to(dev)
+        got = gather_cuda.row_grad(grad_d, idx_d, m)
+        again = gather_cuda.row_grad(grad_d, idx_d, m)
+        torch.cuda.synchronize()
+        want = gather_cuda.row_grad_plain(grad, idx, m)
+        if not torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"row_grad {rows} rows, {m} materials ({ids}): "
+                                 "the kernel differs from its plain version")
+        if not torch.equal(again.view(torch.int32), got.view(torch.int32)):
+            raise AssertionError(f"row_grad {rows} rows, {m} materials ({ids}): "
+                                 "two calls differ")
+        lib = torch.zeros((m, ROW_GRAD_COLS), device=dev).index_put_(
+            (idx_d,), grad_d, accumulate=True)
+        rel = float((lib - got).abs().max() / got.abs().max().clamp(min=1e-30))
+        worst = max(worst, float((got.cpu() - want).abs().max()))
+        log(f"(a) row_grad {rows} rows, {m} materials, ids {ids}: bit-equal to "
+            f"the plain version on the CPU and from call to call; "
+            f"index_put_ within {rel:.3g} of the largest sum")
+    errs["row_grad"] = worst
+
+    for rows in (1 << 15, 1 << 20):
+        for ids in ("mixed", "one"):
+            grad, idx = row_grad_inputs(rows, 4, ids, 5)
+            grad_d, idx_d = grad.to(dev), idx.to(dev)
+
+            def kernel():
+                return gather_cuda.row_grad(grad_d, idx_d, 4)
+
+            def library():
+                return torch.zeros((4, ROW_GRAD_COLS), device=dev).index_put_(
+                    (idx_d,), grad_d, accumulate=True)
+
+            ms = median_ms(kernel, 20)
+            plain = median_ms(lambda: gather_cuda.row_grad_plain(grad_d, idx_d, 4),
+                              5)
+            lib_ms = median_ms(library, 5)
+            dev_ms, dev_by = row_grad_device_ms(kernel)
+            # The trace can miss events, never add one: the largest of three.
+            lib_dev = max(sum(t for _, t in device_events(library, 5)) / 5e3
+                          for _ in range(3))
+            nbytes = rows * (ROW_GRAD_COLS * 4 + 8) + 4 * ROW_GRAD_COLS * 4
+            bound_ms, bound_by = bound(rows * ROW_GRAD_COLS, nbytes)
+            log(f"(b) row_grad {rows} rows, 4 materials, ids {ids}: kernel "
+                f"{ms:.4f} ms per call ({dev_ms:.4f} ms on the device, by "
+                f"{dev_by}), bound {bound_ms:.5f} ms ({bound_by}: {nbytes:,} "
+                f"bytes), plain torch {plain:.3f} ms, index_put_ {lib_ms:.3f} ms "
+                f"({lib_dev:.3f} ms on the device) ({smi})")
+            if rows == 1 << 15 and ids == "mixed":
+                timing["row_grad"] = dict(
+                    ms=ms, plain_ms=plain, device_ms=dev_ms, device_by=dev_by,
+                    bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+
+    counts = {}
+    for config, traffic in INVERSE_CELLS:
+        cfg, fs, vg, params = cell_step(config, traffic, dev)
+        leaves = {f: v.clone().requires_grad_(True) for f, v in params.items()}
+        vg(leaves, fs)
+        torch.cuda.synchronize()
+        chunks = inverse.STATS.chunks
+        _build.reset_launches()
+        vg(leaves, fs)
+        torch.cuda.synchronize()
+        chunks = inverse.STATS.chunks - chunks
+        n = _build.LAUNCHES["row_grad"]
+        if n < chunks:
+            raise AssertionError(f"{config}.{traffic}: {n} row_grad launches in a "
+                                 f"step of {chunks} chunks")
+        counts[config] = n
+        events = device_events(lambda: vg(leaves, fs))
+        total = sum(t for _, t in events)
+        own = sum(t for name, t in events if "row_grad_" in name)
+        log(f"(c) {config}.{traffic}, one step ({cfg.width}x{cfg.height} x "
+            f"{cfg.samples} spp, {chunks} chunks): {n} row_grad launches, one per "
+            f"bounce step's backward; a profiled step: row_grad {own / 1e3:.3f} "
+            f"of {total / 1e3:.3f} ms of device time ({100 * own / total:.3f} %), "
+            f"no indexing_backward kernel: "
+            f"{not any('indexing_backward' in name for name, _ in events)} ({smi})")
+        del fs, vg, params, leaves
+        torch.cuda.empty_cache()
+    _build.reset_launches()
+    fs_np, static_np = R.load_scene(SMALL_SCENE)
+    R.render(fs_np, static_np, R.RenderConfig(width=64, height=64, samples=2,
+                                              bounces=4), device=dev)
+    torch.cuda.synchronize()
+    if _build.LAUNCHES["row_grad"]:
+        raise AssertionError("a frame's render launched the row_grad kernel")
+    log("(c) a frame's render: no row_grad launch")
+    return counts[INVERSE_CELLS[0][0]]
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "ptx_torch")):
         print("chip_smoke.py must run from a checkout of the repository",
@@ -4136,6 +4338,11 @@ def main() -> int:
     check_device_pass(fs_np, static_np, cfg, dev, smi)
 
     phase_time(15)
+    # 16. the backward of the material gather: counts reset just before
+    # each inverse cell's step, read just after.
+    row_grad_launches = check_row_grad(dev, smi, timing, errs)
+
+    phase_time(16)
     if "jax" in sys.modules or "ptx" in sys.modules:
         raise AssertionError("the port imported jax or the JAX package")
 
@@ -4144,13 +4351,16 @@ def main() -> int:
         t = timing[name]
         n = (small_launches if name.endswith("_small") else
              bench_launches if name == "closest_stats" else
-             bvh_launches if name.startswith("bvh_") else launches)[name]
+             bvh_launches if name.startswith("bvh_") else
+             {"row_grad": row_grad_launches} if name == "row_grad" else
+             launches)[name]
         record.append(dict(name=name, route="cuda", source=source,
                            replaces=replaces, launches=n,
                            max_abs_err=errs[name], ms=t["ms"],
                            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-                           # No single PyTorch call computes any of these.
-                           bound_by=t["bound_by"], library_ms=None,
+                           # No single PyTorch call computes any but row_grad.
+                           bound_by=t["bound_by"],
+                           library_ms=t.get("library_ms"),
                            device_ms=t["device_ms"], device_by=t["device_by"]))
     log(smi)
     log(json.dumps({"kernels": record}))

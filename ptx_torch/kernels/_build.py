@@ -54,16 +54,18 @@ _SIGNATURES = {
     "ptx_bvh_closest": [_P, _L, _P, _L, _I, _P, _P, _P, _P, _P, _P, _P],
     "ptx_bvh_any": [_P, _L, _P, _L, _I, _P, _P, _P],
     "ptx_bvh_visits": [_P, _L, _P, _L, _I, _P, _P, _P],
+    "ptx_row_grad": [_P, _P, _L, _I, _I, _I, _L, _I, _P, _P, _P],
 }
 
 # Kernel launches per wrapper since the last reset_launches() ("exact_gate":
 # the plan kernel, which replaces the JAX package's exact gate kernel;
 # "sun": the shadow-ray setup, which replaces its sun kernel; "bvh_*": the
-# BVH walk, which replaces the JAX package's traversal loop).
+# BVH walk, which replaces the JAX package's traversal loop; "row_grad":
+# the backward of a gather of table rows, its two kernels per call).
 LAUNCHES = {
     "exact_gate": 0, "closest": 0, "any": 0, "closest_small": 0,
     "any_small": 0, "sun": 0, "shade": 0, "closest_stats": 0,
-    "bvh_closest": 0, "bvh_any": 0, "bvh_visits": 0,
+    "bvh_closest": 0, "bvh_any": 0, "bvh_visits": 0, "row_grad": 0,
 }
 # The intersection queries' entry points among them, of the tile traversal
 # and of the walk (``render --metrics`` reports their launches).

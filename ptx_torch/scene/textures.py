@@ -14,6 +14,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from ptx_torch import math as pmath
+from ptx_torch.kernels import gather_cuda
 from ptx_torch.scene.flatten import (
     FlatScene,
     SLOT_ALBEDO,
@@ -101,7 +102,9 @@ def material_lookup(fs: FlatScene, mat_id, uv, static=None, shard=None):
 
     mat_id = mat_id.long()
     tex = fs.mat_tex[mat_id] if any(used) else None  # [R, 7]
-    row = fs.mat_packed[mat_id]  # [R, 16]
+    # [R, 16]; its backward is the row_grad kernel when the rows carry a
+    # gradient (gather_cuda.gather_rows), else autograd's own.
+    row = gather_cuda.gather_rows(fs.mat_packed, mat_id)
 
     alb_rgba = None
     if used[SLOT_ALBEDO] or (used[SLOT_OPACITY] and share_op):
